@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (``nanospring_tpu_torch``) on one NVIDIA
 GPU. Run from the root of the repository:
 
-    python3 chip_smoke.py            # the full check, about 4 minutes
+    python3 chip_smoke.py            # the full check, about 5 minutes
     python3 chip_smoke.py --small    # the same phases on a small dataset
 
 Phases, in order; any failure exits nonzero and nothing is carried on:
@@ -15,13 +15,21 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    (bit-equal), and the banded DP on three hook-shaped batches whose
    longest queries need <= 8,192, ~32,768 and > 65,536 rows (byte-equal
    cost / ops_len / tstart / tend / trace rows); plus the DP's costs
-   against the exact C++ DP (W=63) on the first batch.
-4. main path: ``compress_file`` on the 60 Mb headline set (bench.py's
-   dataset: 2 Mb genome, 12,000 reads, mean length 5,000, seed 1234) on
-   cuda with one pipeline worker; decompress and byte-compare; the kernel
-   launch counts are set to 0 just before and read just after. Then the
-   same data with the engine's own DP (``aligner="native"``).
-5. times: each kernel at the main path's shapes with CUDA events (warm-up,
+   against the exact C++ DP (W=63) on the first batch. The v1 DP
+   (``banded_dp32``) likewise on two batches whose longest queries need
+   <= 8,192 rows (the TPU kernel's own shape) and ~32,768 rows (the
+   headline's longest read), with its costs against the exact C++ DP at
+   band 128 on the first.
+4. main paths, each on the 60 Mb headline set (bench.py's dataset: 2 Mb
+   genome, 12,000 reads, mean length 5,000, seed 1234) on cuda with one
+   pipeline worker, decompressed and byte-compared, with the kernel launch
+   counts set to 0 just before the run and read just after:
+   ``compress_file`` with the engine and its device DP hook (the default),
+   the same data with the engine's own DP (``aligner="native"``, the ratio
+   anchor), and the Python wavefront with the v1 DP (``aligner="python"``),
+   whose batches are then replayed on the exact C++ DP (band 128) to
+   compare each pair's accept/reject verdict and cost.
+5. times: each kernel at the main paths' shapes with CUDA events (warm-up,
    then many launches), its plain version's time and its bound.
 
 It prints one JSON line listing every kernel, the card's name and power
@@ -56,6 +64,8 @@ ANCHOR_BASES = 60_023_697
 HBM_BYTES_S = 3.35e12
 INT32_LANES_PER_SM = 64
 DP_OPS_PER_CELL = 8          # 2 adds, 3 mins, 2 +/-k, 1 code compare
+DP16_CELLS = 128             # band cells per query row, banded_dp16
+DP32_CELLS = 256             # and banded_dp32
 
 
 def log(msg: str) -> None:
@@ -164,12 +174,29 @@ def dp_batches(rng, small: bool):
             ("t (> 65,536 rows)", make_pairs(rng, c), 131072)]
 
 
-def dp_tensors(pairs, m_pad, dev):
+def dp32_batches(rng, small: bool):
+    """(label, pairs) for the v1 DP: a wavefront-sized batch at the TPU
+    kernel's own shape and the headline's largest batch at its longest
+    read."""
+    def lognormal(n, cap):
+        L = rng.lognormal(np.log(5_000), 0.6, n).astype(np.int64)
+        return np.clip(L, 500, cap)
+
+    a = lognormal(16 if small else 96, 8_000)
+    a[0] = 8_000
+    b = lognormal(16 if small else 300, 32_000)
+    b[0] = 32_000
+    return [("v1 (<= 8,192 rows)", make_pairs(rng, a)),
+            ("v1 (~32,768 rows)", make_pairs(rng, b))]
+
+
+def dp_tensors(pairs, m_pad, dev, v1: bool = False):
     import torch
 
     from nanospring_tpu_torch.ops import align_tpu as at
 
-    _order, bufs = at.build_buffers(*pairs, m_pad=m_pad)
+    _order, bufs = at.build_buffers(*pairs, m_pad=m_pad,
+                                    slots=at.W32 if v1 else at.W16)
     return {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
 
 
@@ -178,12 +205,16 @@ def dp_args(t):
             t["queries"])
 
 
-def dp_bound_ms(rows: int, P: int, ops_s: float) -> tuple[float, str]:
+def dp_bound_ms(rows: int, P: int, ops_s: float,
+                cells: int = DP16_CELLS) -> tuple[float, str]:
     """Least time for a batch of P pairs and ``rows`` query rows: bytes
-    (used target window, query, trace, 16 B of scalars in and out per
-    pair) over HBM rate vs cells x ops over the int32 rate ``ops_s``."""
-    nbytes = (rows + 128 * P) + rows + rows + 32 * P
-    ops = rows * 128 * DP_OPS_PER_CELL
+    (used target window, query, trace or records, 16 B of scalars in and
+    out per pair) over HBM rate vs cells x ops over the int32 rate
+    ``ops_s``. ``banded_dp16`` writes a 1-byte trace per row over 128
+    cells, ``banded_dp32`` a 4-byte record per row over 256 cells."""
+    rec = 1 if cells == DP16_CELLS else 4
+    nbytes = (rows + cells * P) + rows + rec * rows + 32 * P
+    ops = rows * cells * DP_OPS_PER_CELL
     tb, to = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -212,8 +243,40 @@ def compare_dp(t, got, ref) -> int:
     return int(err)
 
 
+def host_dp_verdicts(batches, al) -> dict:
+    """The wavefront's batches replayed on the exact C++ DP at band 128
+    (``ns_banded_align``, the JAX package's ``aligner="python"`` DP), each
+    pair's verdict against the v1 kernel's: accepts on each side, pairs
+    only one side accepts, and cost disagreements where both accept. The
+    host DP also rejects a pair whose row minimum passes 0.35 per row +
+    240 (its divergence-slope abort, native/align.cpp); ``over_slope``
+    counts the kernel-only accepts whose final cost alone passes that
+    line."""
+    out = dict(pairs=0, rows=0, kernel_accepts=0, host_accepts=0,
+               kernel_only=0, host_only=0, cost_differs=0, over_slope=0,
+               kernel_only_rows=0, kernel_only_cost=0, host_s=0.0)
+    for a, kcost in batches:
+        t0 = time.perf_counter()
+        h = al.banded_align_batch(*a, band=128, use_native=True)
+        out["host_s"] += time.perf_counter() - t0
+        m = np.asarray(a[5], np.int64)
+        k_ok, h_ok = kcost >= 0, h.cost >= 0
+        only = k_ok & ~h_ok
+        out["pairs"] += len(m)
+        out["rows"] += int(m.sum())
+        out["kernel_accepts"] += int(k_ok.sum())
+        out["host_accepts"] += int(h_ok.sum())
+        out["kernel_only"] += int(only.sum())
+        out["host_only"] += int((h_ok & ~k_ok).sum())
+        out["cost_differs"] += int((k_ok & h_ok & (kcost != h.cost)).sum())
+        out["over_slope"] += int((only & (kcost > m * 7 // 20 + 240)).sum())
+        out["kernel_only_rows"] += int(m[only].sum())
+        out["kernel_only_cost"] += int(kcost[only].sum())
+    return out
+
+
 def device_times(prof) -> dict:
-    """{kernel: (count, device ms)} from a torch.profiler run: the two
+    """{kernel: (count, device ms)} from a torch.profiler run: the
     kernels of the port by name, everything else on the card as 'other'."""
     from torch.autograd import DeviceType
 
@@ -227,6 +290,7 @@ def device_times(prof) -> dict:
         if not us:
             continue
         key = ("banded_dp16" if "banded_dp16_kernel" in e.key
+               else "banded_dp32" if "banded_dp32_kernel" in e.key
                else "sketch" if "sketch_kernel" in e.key else "other")
         c, t = out.get(key, (0, 0.0))
         out[key] = (c + (e.count if key != "other" else 0), t + us / 1e3)
@@ -368,6 +432,31 @@ def _run(args, dev, work: str, t_start: float) -> int:
                 fail("DP costs differ from ns_banded_align(W=63)")
             log("[parity] DP v2 batch: costs equal ns_banded_align(W=63)")
 
+    rng32 = np.random.default_rng(2025)
+    dp32_rows = {}
+    dp32_err = 0
+    for label, pairs in dp32_batches(rng32, args.small):
+        t = dp_tensors(pairs, None, dev, v1=True)
+        got = at.banded_dp32(*dp_args(t))
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = at.banded_dp32_plain(*dp_args(t))
+        b.record()
+        torch.cuda.synchronize()
+        dp32_err = max(dp32_err, compare_dp(t, got, ref))
+        log(f"[parity] DP {label}: {t['d0'].numel()} pairs, longest "
+            f"{int(t['q_len'].max())} rows, {int((got[0] >= 0).sum())} "
+            f"accepted: byte-equal")
+        dp32_rows[label] = (t, a.elapsed_time(b))
+        if label.startswith("v1 (<="):
+            res = at.banded_align_batch_32(*pairs, device="cuda")
+            nat = al.banded_align_batch(*pairs, band=128, use_native=True)
+            if not np.array_equal(res.cost, nat.cost):
+                fail("v1 DP costs differ from ns_banded_align(band 128)")
+            log("[parity] DP v1 batch: costs equal ns_banded_align(band 128)")
+
     # 4. main path ---------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -426,6 +515,59 @@ def _run(args, dev, work: str, t_start: float) -> int:
     if not args.small and round(res_n["ratio"], 2) != ANCHOR_RATIO:
         fail(f"native-DP ratio {res_n['ratio']:.4f} is not the anchor "
              f"{ANCHOR_RATIO}")
+
+    arc_w = os.path.join(work, "headline_wavefront.nstpu")
+    # keep each wavefront batch and its costs, to replay them on the host
+    # DP after the run
+    batches_w = []
+    batch32 = at.banded_align_batch_32
+
+    def recording(*a, **kw):
+        r = batch32(*a, **kw)
+        batches_w.append((a, r.cost))
+        return r
+
+    at.banded_align_batch_32 = recording
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_w:
+            sk.sketch_reads.launches = 0
+            at.banded_dp16.launches = 0
+            at.banded_dp32.launches = 0
+            res_w = compressor.compress_file(
+                fq, arc_w,
+                CompressConfig(aligner="python", pipeline_workers=1),
+                report=False)
+            launches_w = {"sketch": sk.sketch_reads.launches,
+                          "banded_dp16": at.banded_dp16.launches,
+                          "banded_dp32": at.banded_dp32.launches}
+    finally:
+        at.banded_align_batch_32 = batch32
+    prof_w_ms = device_times(prof_w)
+    busy_w = sum(v[1] for v in prof_w_ms.values())
+    wall_w = res_w["wall_s"] * 1e3
+    log(f"[main] wavefront profiler, device time by kernel (count, ms): "
+        f"{json.dumps(prof_w_ms)}; device busy {busy_w:.1f} ms of "
+        f"{wall_w:.0f} ms compress wall ({busy_w / wall_w:.4f})")
+    dpi_w = res_w["dp_info"]
+    decompressor.decompress_file(arc_w, out, report=False)
+    with open(out, "rb") as f:
+        lossless_w = f.read().split(b"\n")[:-1] == reads
+    log(f"[main] wavefront + v1 DP: ratio {res_w['ratio']:.4f}, compress "
+        f"{res_w['wall_s']:.2f} s, lossless {lossless_w}")
+    log(f"[main] wavefront stages {json.dumps(res_w['stage_s'])} | pipe "
+        f"split {json.dumps(res_w['pipe_split'])}")
+    log(f"[main] wavefront dp_info {json.dumps(dpi_w)} | launches "
+        f"{json.dumps(launches_w)}")
+    if not lossless_w:
+        fail("wavefront archive does not decode to the input")
+    if launches_w["sketch"] <= 0 or launches_w["banded_dp32"] <= 0:
+        fail(f"a kernel of the wavefront path never launched: {launches_w}")
+    if dpi_w["dp_kernel_launches"] != launches_w["banded_dp32"]:
+        fail("the wavefront's launch count disagrees with banded_dp32's")
+    log(f"[main] wavefront batches vs the host DP: "
+        f"{json.dumps(host_dp_verdicts(batches_w, al))}")
+    del batches_w
 
     # 5. times -------------------------------------------------------------
     k = cfg0.kmer_size
@@ -493,6 +635,52 @@ def _run(args, dev, work: str, t_start: float) -> int:
         "launches": launches["banded_dp16"], "max_abs_err": dp_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
         "bound_by": bby, "library_ms": None,
+    })
+    for label, (t, p_ms) in dp32_rows.items():
+        ms32 = timed(lambda: at.banded_dp32(*dp_args(t)), reps=3, warm=1)
+        bms32, bby32 = dp_bound_ms(int(t["q_len"].sum()), t["d0"].numel(),
+                                   ops_s, DP32_CELLS)
+        log(f"[time] banded_dp32 {label}: {ms32:.3f} ms per batch of "
+            f"{t['d0'].numel()} pairs ({int(t['q_len'].sum())} rows), "
+            f"plain {p_ms:.1f} ms, bound {bms32:.4f} ms ({bby32})")
+    # the wavefront's mean batch: its pair count, with query lengths drawn
+    # from the dataset's reads
+    n_w = max(1, round(dpi_w["dp_kernel_pairs"]
+                       / max(dpi_w["dp_kernel_launches"], 1)))
+    lens = rng32.choice(store.lengths[store.lengths >= 32], n_w)
+    t = dp_tensors(make_pairs(rng32, lens), None, dev, v1=True)
+    ms32 = timed(lambda: at.banded_dp32(*dp_args(t)), reps=10, warm=2)
+    got = at.banded_dp32(*dp_args(t))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = at.banded_dp32_plain(*dp_args(t))
+    b.record()
+    torch.cuda.synchronize()
+    plain32_ms = a.elapsed_time(b)
+    dp32_err = max(dp32_err, compare_dp(t, got, ref))
+    bms32, bby32 = dp_bound_ms(int(t["q_len"].sum()), n_w, ops_s, DP32_CELLS)
+    log(f"[time] banded_dp32 wavefront mean batch: {ms32:.3f} ms per batch "
+        f"of {n_w} pairs ({int(t['q_len'].sum())} rows, longest "
+        f"{int(t['q_len'].max())}), plain {plain32_ms:.1f} ms, bound "
+        f"{bms32:.4f} ms ({bby32})")
+    launches32 = max(launches_w["banded_dp32"], 1)
+    rows_w = dpi_w["dp_kernel_rows"] / launches32
+    pbms, pbby = dp_bound_ms(int(rows_w), n_w, ops_s, DP32_CELLS)
+    if "banded_dp32" in prof_w_ms:
+        cnt, tot = prof_w_ms["banded_dp32"]
+        log(f"[time] banded_dp32 in the wavefront run (profiler): {cnt} "
+            f"launches, {tot:.1f} ms in all, {tot / max(cnt, 1):.3f} ms per "
+            f"launch, {rows_w:.0f} rows and "
+            f"{dpi_w['dp_kernel_longest_rows'] / launches32:.0f} longest-"
+            f"query rows per launch, bound {pbms:.4f} ms ({pbby})")
+    kernels.append({
+        "name": "banded_dp32", "route": "cuda",
+        "source": "nanospring_tpu_torch/csrc/banded_dp32.cu",
+        "replaces": "nanospring_tpu/ops/align_tpu.py:60",
+        "launches": launches_w["banded_dp32"], "max_abs_err": dp32_err,
+        "ms": ms32, "plain_ms": plain32_ms, "bound_ms": bms32,
+        "bound_by": bby32, "library_ms": None,
     })
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,10 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adaptive first-try band half-width")
     p.add_argument("--polish-rounds", type=int, default=1,
                    help="consensus column-voting rounds (0 disables)")
-    p.add_argument("--aligner", choices=["device", "native"],
+    p.add_argument("--aligner", choices=["device", "native", "python"],
                    default="device",
                    help="DP backend for contig growth: the device kernel "
-                        "through the engine's hook, or the engine's own DP")
+                        "through the engine's hook, the engine's own DP, or "
+                        "the Python wavefront with the v1 device kernel")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the sketch and the device DP run (cpu runs "
                         "the kernels' plain PyTorch versions)")

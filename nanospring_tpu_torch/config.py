@@ -7,7 +7,7 @@ apples-to-apples, but the knobs control a different, batch-first pipeline.
 
 This is the PyTorch port's copy of ``nanospring_tpu/config.py``. It adds
 ``device`` (where the sketch and the batch DP run) and narrows ``aligner``
-to the two engine backends this package has; ``from_reference`` carries a
+to the three backends this package has; ``from_reference`` carries a
 JAX-package config across field by field.
 """
 
@@ -18,7 +18,7 @@ import os
 import tempfile
 
 
-ALIGNERS = ("device", "native")
+ALIGNERS = ("device", "native", "python")
 DEVICES = ("cuda", "cpu")
 # the JAX package's aligner names -> this package's
 _REFERENCE_ALIGNER = {"tpu": "device", "auto": "native"}
@@ -88,7 +88,12 @@ class CompressConfig:
                                        # (csrc/banded_dp16.cu on cuda, its
                                        # plain torch version on cpu) as the
                                        # engine's batch DP backend;
-                                       # "native" = C++ stitched/banded DP
+                                       # "native" = C++ stitched/banded DP;
+                                       # "python" = the Python wavefront
+                                       # (grow loop in Python) with its
+                                       # batch DP in csrc/banded_dp32.cu
+                                       # (plain torch version on cpu),
+                                       # band fixed at [-128, 127]
     device: str = "cuda"               # "cuda" | "cpu": where the sketch
                                        # and the device DP run; "cuda"
                                        # without a card raises
@@ -130,6 +135,10 @@ class CompressConfig:
         if self.device not in DEVICES:
             raise ValueError(f"device must be one of {DEVICES}, "
                              f"got {self.device!r}")
+        if self.aligner == "python" and self.band_width > 128:
+            raise ValueError("aligner='python' runs banded_dp32, whose band "
+                             "is fixed at [-128, 127]: band_width must be "
+                             f"<= 128, got {self.band_width}")
 
     @classmethod
     def from_reference(cls, d: dict, **overrides) -> "CompressConfig":
@@ -141,9 +150,15 @@ class CompressConfig:
         reference's chip aligner ("tpu") maps to "device". Its default
         "auto" runs the engine's own DP unless a TPU is attached and its
         probe is enabled, so it maps to "native", the DP it runs by default;
-        the timed probe itself is not ported. "python" (the numpy oracle
-        wavefront) is not ported and raises. ``overrides`` are applied last
-        (e.g. ``device="cpu"``).
+        the timed probe itself is not ported. "python" maps to "python",
+        the wavefront with its batch DP (``banded_dp32``) on ``device``. Its
+        counterpart in the JAX package is the wavefront's route through the
+        v1 kernel (``aligner="tpu"`` with no C++ engine). The JAX
+        ``"python"`` runs the host DP instead: where both accept a pair the
+        costs are equal (up to the host band's one extra diagonal) and the
+        scripts differ at ties, but the host DP also rejects divergent
+        pairs early (its divergence-slope abort), which the kernel
+        accepts. ``overrides`` are applied last (e.g. ``device="cpu"``).
         """
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}

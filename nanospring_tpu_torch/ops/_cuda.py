@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("sketch.cu", "banded_dp16.cu")
+SOURCES = ("sketch.cu", "banded_dp16.cu", "banded_dp32.cu")
 _SO_NAME = "libnstpu_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
 
@@ -110,6 +110,9 @@ def get_lib() -> ctypes.CDLL:
                 vp, i64,                 # trace + row stride
                 vp, i64,                 # dirs scratch + rows per pair
                 i32, vp]                 # pairs, stream
+            lib.ns_banded_dp32_launch.restype = i32
+            lib.ns_banded_dp32_launch.argtypes = \
+                lib.ns_banded_dp16_launch.argtypes
             lib.ns_copy2d.restype = i32
             lib.ns_copy2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
             lib.ns_cuda_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,8 @@
-"""Contig building on the engine path: sketch-join clustering + the C++
-wavefront engine, with the sketch and the engine's batch DP on the device.
+"""Contig building: sketch-join clustering + wavefront growth (the C++
+engine or the Python wavefront), with the sketch and the batch DP on the
+device.
 
-Port of ``nanospring_tpu/pipeline/contigs.py`` (engine path only):
+Port of ``nanospring_tpu/pipeline/contigs.py``:
 
 1. **Sketch** every read once: ``csrc/sketch.cu`` on ``cuda``, its plain
    PyTorch version on ``cpu`` (``ops/sketch.py``).
@@ -13,6 +14,9 @@ Port of ``nanospring_tpu/pipeline/contigs.py`` (engine path only):
    With ``aligner="device"`` it hands each batch of DP to
    ``_DeviceDpHook``, which runs ``csrc/banded_dp16.cu`` (or its plain
    version on ``cpu``); ``aligner="native"`` keeps the engine's own DP.
+   ``aligner="python"`` grows in the Python wavefront (``_Wavefront``),
+   whose frontier batches run ``csrc/banded_dp32.cu`` (the v1 kernel's
+   counterpart) on ``cfg.device``, then polishes in one native call.
 4. **Emit**: polished contigs become flat edit-script arrays.
 
 Components are disjoint, so subsets of them grow in separate worker
@@ -32,6 +36,8 @@ from ..config import CompressConfig
 from ..io import packed as pk
 from ..io.serialize import ContigBatch
 from ..ops import align as al
+from ..ops import align_tpu as at
+from ..ops import minimizers as mz
 from ..ops import sketch as sk
 from ..utils.observe import FunnelStats
 from . import candidates
@@ -163,6 +169,116 @@ def _orient_codes(codes: np.ndarray, strand: int) -> np.ndarray:
     return pk.revcomp_codes(codes) if strand else codes
 
 
+class _ContigState:
+    """Mutable consensus + placed-member anchor tables for one contig."""
+
+    def __init__(self, cid: int, seed_rid: int, seed_codes: np.ndarray,
+                 cfg: CompressConfig):
+        self.cid = cid
+        self.cfg = cfg
+        # consensus lives in a slack buffer so head/tail growth is amortized
+        # O(growth) instead of O(len) per accept (contigs reach megabases)
+        n = len(seed_codes)
+        self._buf = np.empty(2 * n + 512, dtype=np.uint8)
+        self._start = n // 2 + 128
+        self._len = n
+        self._buf[self._start: self._start + n] = seed_codes
+        self.lo = 0  # consensus coords of cons[0]
+        self.members: list[_Member] = []
+        self.total_aligned = 0
+        self.pending = 0       # frontier items referencing this contig
+        self.closed = False    # edge_threshold reached: stop growing
+        # parent anchor tables: rid -> (hash, tpos, fwdflag)
+        self.anchors: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+
+    @property
+    def cons(self) -> np.ndarray:
+        return self._buf[self._start: self._start + self._len]
+
+    @cons.setter
+    def cons(self, arr: np.ndarray) -> None:
+        arr = np.asarray(arr, dtype=np.uint8)
+        self._buf = arr.copy() if arr.base is self._buf else arr
+        self._start = 0
+        self._len = len(arr)
+
+    def _prepend(self, codes: np.ndarray) -> None:
+        n = len(codes)
+        if n > self._start:
+            grow = max(n, self._len) + 512
+            nb = np.empty(grow + self._start + len(self._buf), dtype=np.uint8)
+            nb[grow + self._start: grow + self._start + self._len] = self.cons
+            self._buf = nb
+            self._start += grow
+        self._start -= n
+        self._len += n
+        self._buf[self._start: self._start + n] = codes
+
+    def _append(self, codes: np.ndarray) -> None:
+        n = len(codes)
+        end = self._start + self._len
+        if end + n > len(self._buf):
+            grow = max(n, self._len) + 512
+            nb = np.empty(len(self._buf) + grow, dtype=np.uint8)
+            nb[self._start: end] = self.cons
+            self._buf = nb
+        self._buf[end: end + n] = codes
+        self._len += n
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self._len
+
+    def add_seed_member(self, rid: int, codes: np.ndarray) -> None:
+        ops = np.full(len(codes), ord("="), dtype=np.uint8)
+        self.members.append(_Member(rid, 0, 0, ops, 0))
+        h, p, f = mz.minimizers(codes, self.cfg.seed_kmer_size, self.cfg.seed_window)
+        self.anchors[rid] = mz.prepare_anchors(h, p.astype(np.int64), f)
+        self.total_aligned += len(codes)
+
+    def accept(self, rid: int, is_rc: int, tstart_abs: int, tend_abs: int,
+               ops: np.ndarray, cost: int, codes: np.ndarray,
+               fwd_anchors) -> None:
+        """Record an accepted alignment; splice overhangs into the consensus.
+
+        ``ops`` may begin/end with 'i' runs (clipped overhangs). If an 'i'
+        run touches the consensus end it becomes consensus growth (the run
+        flips to '='); otherwise it stays an insertion run — lossless either
+        way, growth is just better for ratio.
+        """
+        cfg = self.cfg
+        mlen = len(codes)
+        head = 0
+        while head < len(ops) and ops[head] == ord("i"):
+            head += 1
+        tail = 0
+        while tail < len(ops) and ops[len(ops) - 1 - tail] == ord("i"):
+            tail += 1
+        if head and tstart_abs == self.lo:
+            self._prepend(codes[:head])
+            self.lo -= head
+            ops[:head] = ord("=")
+            tstart_abs -= head
+        if tail and tend_abs == self.hi and head + tail <= len(ops):
+            self._append(codes[mlen - tail:])
+            ops[len(ops) - tail:] = ord("=")
+
+        self.members.append(_Member(rid, is_rc, tstart_abs, ops, cost))
+        self.total_aligned += mlen
+
+        # anchor table for this member: minimizer positions mapped through
+        # the alignment into consensus coords (oriented coords -> tpos).
+        # Positions inside 'i' runs are DROPPED: an inserted query base has
+        # no target position (q2t collapses whole runs onto one cursor
+        # value), and anchors built there would hand children wildly wrong
+        # diagonals — a self-reinforcing misplacement cascade.
+        # fwd_anchors is already prepared (sorted-unique), so the output
+        # table is too (native one-pass in ops/minimizers.accept_anchors).
+        h, p, f = fwd_anchors
+        self.anchors[rid] = mz.accept_anchors(
+            ops, tstart_abs, mlen, is_rc, cfg.seed_kmer_size, h, p, f)
+
+
 def _check_member(st, m: _Member, codes: np.ndarray | None = None,
                   store=None) -> None:
     """Edit-script replay equality: walking the member's op tape over the
@@ -199,6 +315,54 @@ def check_contigs(states: list, store) -> None:
             _check_member(st, m, store=store)
 
 
+def _polish_contig(state: _ContigState, store) -> None:
+    """Majority-vote substitution polish of the consensus (one pass).
+
+    The mosaic consensus keeps the seed read's bases in the interior, so
+    every member pays an 's' edit wherever the seed erred (~error-rate of
+    the seed, at full coverage). The reference fixes this with weighted
+    heaviest-path recompute (src/ConsensusGraph.cpp:559-615
+    calculateMainPathGreedy); here the same effect is a vectorized pileup
+    vote. Substitution-only polish is purely mechanical on the op tapes:
+    'd' consumes no base and literals are re-extracted from the query codes
+    downstream (ops_to_edit_scripts), so changing consensus column c from X
+    to Y just flips members' ops at c between '=' and 's' — no re-alignment.
+    """
+    members = state.members
+    if len(members) < 3:
+        return
+    L = len(state.cons)
+    vote_keys = []
+    per_member = []  # (ops_idx_of_base_ops, tcols, bases)
+    for m in members:
+        ops = m.ops
+        consumes_t = ops != ord("i")
+        tcol = (m.tstart - state.lo) + np.cumsum(consumes_t) - consumes_t
+        consumes_q = ops != ord("d")
+        qpos = np.cumsum(consumes_q) - consumes_q
+        codes = _orient_codes(store.get_codes(m.rid), m.strand)
+        has_base = consumes_t & consumes_q          # '=' or 's'
+        cols = tcol[has_base]
+        bases = codes[qpos[has_base]]
+        vote_keys.append(cols * 4 + bases)
+        per_member.append((has_base, cols, bases))
+    votes = np.bincount(
+        np.concatenate(vote_keys), minlength=L * 4
+    ).reshape(L, 4)
+
+    best = np.argmax(votes, axis=1).astype(np.uint8)
+    old = state.cons
+    maxv = votes[np.arange(L), best]
+    oldv = votes[np.arange(L), old]
+    new = np.where((maxv > oldv), best, old)        # ties keep the old base
+    if not (new != old).any():
+        return
+    state.cons = new.astype(np.uint8)
+    for m, (has_base, cols, bases) in zip(members, per_member):
+        newop = np.where(bases == new[cols], np.uint8(ord("=")), np.uint8(ord("s")))
+        m.ops[has_base] = newop
+
+
 def _excl_cumsum64(x: np.ndarray) -> np.ndarray:
     out = np.zeros(len(x), dtype=np.int64)
     if len(x) > 1:
@@ -232,6 +396,231 @@ def _member_codes_flat(states: list, store):
         codes_flat.ctypes.data_as(u8p),
     )
     return codes_flat, codes_off, codes_len
+
+
+def _polish_batch_native(states: list, store) -> bool:
+    """Batched C++ polish of all contigs (native/polish.cpp); mutates the
+    states in place. Returns False when the native lib is unavailable so
+    the caller can fall back to the numpy oracle path."""
+    try:
+        import ctypes
+
+        from .. import native
+
+        lib = native.get_lib()
+    except Exception:
+        return False
+    C = len(states)
+    if C == 0:
+        return True
+    cons_len = np.array([len(st.cons) for st in states], np.int64)
+    cons_off = _excl_cumsum64(cons_len)
+    cons_flat = (np.concatenate([st.cons for st in states])
+                 if C else np.zeros(0, np.uint8)).astype(np.uint8, copy=False)
+    m_cnt = np.array([len(st.members) for st in states], np.int64)
+    m_off = _excl_cumsum64(m_cnt)
+    members = [m for st in states for m in st.members]
+    M = len(members)
+    ops_len = np.array([len(m.ops) for m in members], np.int64)
+    ops_off = _excl_cumsum64(ops_len)
+    ops_flat = (np.concatenate([m.ops for m in members])
+                if M else np.zeros(0, np.uint8)).astype(np.uint8, copy=False)
+    tstart_rel = np.empty(M, np.int64)
+    k = 0
+    for st in states:
+        for m in st.members:
+            tstart_rel[k] = m.tstart - st.lo
+            k += 1
+    codes_flat, codes_off, _ = _member_codes_flat(states, store)
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    out_cons_total = ctypes.c_int64()
+    out_ops_total = ctypes.c_int64()
+    h = lib.ns_polish_batch(
+        cons_flat.ctypes.data_as(u8p), cons_off.ctypes.data_as(i64p),
+        cons_len.ctypes.data_as(i64p), ctypes.c_int64(C),
+        ops_flat.ctypes.data_as(u8p), ops_off.ctypes.data_as(i64p),
+        ops_len.ctypes.data_as(i64p), tstart_rel.ctypes.data_as(i64p),
+        m_off.ctypes.data_as(i64p), m_cnt.ctypes.data_as(i64p),
+        codes_flat.ctypes.data_as(u8p), codes_off.ctypes.data_as(i64p),
+        ctypes.byref(out_cons_total), ctypes.byref(out_ops_total),
+    )
+    try:
+        new_cons_flat = np.empty(out_cons_total.value, np.uint8)
+        new_cons_len = np.empty(C, np.int64)
+        new_ops_flat = np.empty(out_ops_total.value, np.uint8)
+        new_ops_len = np.empty(M, np.int64)
+        new_tstart = np.empty(M, np.int64)
+        lib.ns_polish_fetch(
+            ctypes.c_void_p(h),
+            new_cons_flat.ctypes.data_as(u8p), new_cons_len.ctypes.data_as(i64p),
+            new_ops_flat.ctypes.data_as(u8p), new_ops_len.ctypes.data_as(i64p),
+            new_tstart.ctypes.data_as(i64p),
+        )
+    finally:
+        lib.ns_polish_free(ctypes.c_void_p(h))
+    # unflatten
+    oo = 0
+    mi = 0
+    cpos = 0
+    ci = 0
+    for st in states:
+        L = int(new_cons_len[ci])
+        st.cons = new_cons_flat[cpos: cpos + L].copy()
+        cpos += L
+        ci += 1
+        for m in st.members:
+            ln = int(new_ops_len[mi])
+            m.ops = new_ops_flat[oo: oo + ln].copy()
+            m.tstart = st.lo + int(new_tstart[mi])
+            oo += ln
+            mi += 1
+    return True
+
+
+def _member_tape(state: _ContigState, store, m: _Member):
+    """Per-op (target column, query pos, codes) arrays for one member."""
+    ops = m.ops
+    consumes_t = ops != ord("i")
+    tcol = (m.tstart - state.lo) + np.cumsum(consumes_t) - consumes_t
+    consumes_q = ops != ord("d")
+    qpos = np.cumsum(consumes_q) - consumes_q
+    codes = _orient_codes(store.get_codes(m.rid), m.strand)
+    return ops, consumes_t, tcol, consumes_q, qpos, codes
+
+
+def _polish_indels(state: _ContigState, store) -> None:
+    """Column-voting indel polish (one pass each of deletions, insertions).
+
+    Seed-read indel errors survive in the consensus: every member pays a
+    'd' at a spurious column and an 'i' at a missing one (the reference
+    heals these through its weighted DAG re-extension,
+    src/ConsensusGraph.cpp:559-615). Both fixes are mechanical op rewrites:
+
+    - delete column c (majority 'd' there): members' 'd' ops at c vanish;
+      members with a base there keep it as an 'i' (literals re-extracted
+      from query codes downstream).
+    - insert base b at gap g (majority of spanning members carry a first
+      'i' of base b there): those 'i' ops flip to '='; other spanning
+      members gain a 'd'.
+    """
+    members = state.members
+    if len(members) < 3:
+        return
+
+    # --- deletions ---------------------------------------------------------
+    L = len(state.cons)
+    dv_keys, bv_keys = [], []
+    for m in members:
+        ops, consumes_t, tcol, consumes_q, qpos, codes = _member_tape(state, store, m)
+        dv_keys.append(tcol[ops == ord("d")])
+        bv_keys.append(tcol[consumes_t & consumes_q])
+    del_votes = np.bincount(np.concatenate(dv_keys), minlength=L + 1)
+    base_votes = np.bincount(np.concatenate(bv_keys), minlength=L + 1)
+    delmask = del_votes[:L] > base_votes[:L]
+    if delmask.any():
+        ndel_before = np.cumsum(delmask) - delmask
+        for m in members:
+            ops = m.ops
+            consumes_t = ops != ord("i")
+            tcol = (m.tstart - state.lo) + np.cumsum(consumes_t) - consumes_t
+            at_del = consumes_t & delmask[np.minimum(tcol, L - 1)] & (tcol < L)
+            if not at_del.any():
+                ts_rel = m.tstart - state.lo
+                m.tstart = state.lo + ts_rel - int(ndel_before[min(ts_rel, L - 1)])
+                continue
+            drop = at_del & (ops == ord("d"))
+            to_i = at_del & (ops != ord("d"))
+            ops2 = ops.copy()
+            ops2[to_i] = ord("i")
+            m.ops = ops2[~drop]
+            ts_rel = m.tstart - state.lo
+            m.tstart = state.lo + ts_rel - int(ndel_before[min(ts_rel, L - 1)])
+        state.cons = state.cons[~delmask]
+
+    # --- insertions --------------------------------------------------------
+    L = len(state.cons)
+    iv = np.zeros((L + 1, 4), np.int64)
+    cov = np.zeros(L + 3, np.int64)
+    tapes = []
+    for m in members:
+        tape = _member_tape(state, store, m)
+        tapes.append(tape)
+        ops, consumes_t, tcol, consumes_q, qpos, codes = tape
+        n = len(ops)
+        if n == 0 or not consumes_t.any():
+            continue
+        isi = ~consumes_t
+        idx = np.arange(n)
+        first_c = int(np.argmax(consumes_t))
+        last_c = n - 1 - int(np.argmax(consumes_t[::-1]))
+        interior = isi & (idx > first_c) & (idx < last_c)
+        ii = np.flatnonzero(interior)
+        ts_rel = int(tcol[first_c])
+        te_rel = int(tcol[last_c]) + 1
+        cov[ts_rel + 1] += 1
+        cov[max(te_rel, ts_rel + 1)] -= 1
+        if len(ii):
+            gaps = tcol[ii]
+            bases = codes[qpos[ii]]
+            firstmask = np.ones(len(ii), bool)
+            firstmask[1:] = gaps[1:] != gaps[:-1]
+            np.add.at(iv, (gaps[firstmask], bases[firstmask]), 1)
+    cov = np.cumsum(cov)[: L + 1]
+    best_b = np.argmax(iv, axis=1)
+    best_v = iv[np.arange(L + 1), best_b]
+    insmask = best_v * 2 > np.maximum(cov, 1)
+    ins_gaps = np.flatnonzero(insmask)
+    if len(ins_gaps) == 0:
+        return
+    ins_base = best_b[ins_gaps].astype(np.uint8)
+    gap_newbase = np.full(L + 1, 255, np.uint8)
+    gap_newbase[ins_gaps] = ins_base
+    nins_leq = np.cumsum(insmask)          # inserted gaps with index <= c
+    for m, tape in zip(members, tapes):
+        ops, consumes_t, tcol, consumes_q, qpos, codes = tape
+        n = len(ops)
+        if n == 0 or not consumes_t.any():
+            continue
+        idx = np.arange(n)
+        first_c = int(np.argmax(consumes_t))
+        last_c = n - 1 - int(np.argmax(consumes_t[::-1]))
+        ts_rel = int(tcol[first_c])
+        te_rel = int(tcol[last_c]) + 1
+        isi = ~consumes_t
+        interior = isi & (idx > first_c) & (idx < last_c)
+        ii = np.flatnonzero(interior)
+        flip = np.zeros(n, bool)
+        matched_gap = np.zeros(L + 1, bool)
+        if len(ii):
+            gaps = tcol[ii]
+            firstmask = np.ones(len(ii), bool)
+            firstmask[1:] = gaps[1:] != gaps[:-1]
+            fi = ii[firstmask]
+            fgaps = tcol[fi]
+            fbase = codes[qpos[fi]]
+            hit = insmask[fgaps] & (fbase == gap_newbase[fgaps])
+            flip[fi[hit]] = True
+            matched_gap[fgaps[hit]] = True
+        ops2 = ops.copy()
+        ops2[flip] = ord("=")
+        # spanning gaps without a matching first-'i' gain a 'd' before the
+        # op that consumes column g
+        need_d = insmask.copy()
+        need_d[: ts_rel + 1] = False
+        need_d[te_rel:] = False
+        need_d &= ~matched_gap
+        dg = np.flatnonzero(need_d)
+        if len(dg):
+            # position: first op with consumes_t and tcol == g
+            pos = np.searchsorted(tcol[consumes_t], dg)
+            cons_idx = np.flatnonzero(consumes_t)
+            at = cons_idx[pos]
+            ops2 = np.insert(ops2, at, ord("d"))
+        m.ops = ops2
+        m.tstart = state.lo + ts_rel + int(nins_leq[ts_rel])
+    state.cons = np.insert(state.cons, ins_gaps, ins_base)
 
 
 def _emit_group(states: list, store) -> dict:
@@ -289,6 +678,347 @@ def _emit_group(states: list, store) -> dict:
         "strand": strands,
         "es": es,
     }
+
+
+@dataclasses.dataclass
+class _Item:
+    """One frontier entry: candidate rid to be placed on contig cid."""
+    cid: int
+    rid: int
+    parent: int
+    attempts: int = 0
+
+
+@dataclasses.dataclass
+class _Placed:
+    """A frontier item that anchored successfully, ready for banded DP."""
+    item: _Item
+    is_rc: int
+    codes: np.ndarray       # oriented query codes
+    qlo: int
+    qhi: int
+    wlo: int                # consensus-coord window passed as DP target
+    whi: int
+    snap_lo: int            # contig extent at placement time
+    snap_hi: int
+    d0_win: int             # expected diagonal in window/clipped coords
+    fwd_anchors: tuple      # candidate's forward-orientation minimizers
+
+
+class _Wavefront:
+    """Cross-contig frontier scheduler around the batched aligner."""
+
+    def __init__(self, store, cfg: CompressConfig, stats: FunnelStats,
+                 adj_off: np.ndarray, adj: np.ndarray, claimed: np.ndarray,
+                 comp_of: np.ndarray):
+        self.store = store
+        self.cfg = cfg
+        self.stats = stats
+        self.adj_off = adj_off
+        self.adj = adj
+        self.claimed = claimed
+        self.states: dict[int, _ContigState] = {}
+        self.queue: list[_Item] = []
+        self.done: list[_ContigState] = []
+        self.visited: dict[int, set] = {}  # cid -> rids ever enqueued
+        self._mz_cache: dict[int, tuple] = {}
+        self._next_cid = 0
+        # Contigs per component: unconstrained concurrent seeds inside one
+        # component fragment it into competing contigs, but one contig at a
+        # time starves the alignment batch (frontier width ~ coverage). So
+        # extra seeds are allowed only where no frontier has reached yet
+        # (``touched`` = enqueued by any contig): contigs stay >=2 hops
+        # apart and meet at claim boundaries — the same partitioning the
+        # reference gets from its per-thread contigs
+        # (reference: src/Consensus.cpp:41,444-468, thread-count-dependent).
+        self.comp_of = comp_of
+        self.touched = np.zeros(len(claimed), dtype=bool)
+        self._comp_cursor: dict[int, int] = {}  # comp -> next seed scan pos
+        self._comp_phase: dict[int, int] = {}   # 0 = fresh pass, 1 = residual
+        self._comp_members: dict[int, np.ndarray] = {}
+        self.comp_active: dict[int, int] = {}   # comp -> live contig count
+        # batch DP: banded_dp32 on cfg.device (raises now if it has no card)
+        self.device = cfg.torch_device()
+        self.dp_s = 0.0             # wall inside _align (its own thread)
+        self.dp_launches = 0        # CUDA kernel launches (0 on cpu)
+        self.dp_pairs = 0           # pairs sent to the DP
+        self.dp_rows = 0            # query rows of those pairs
+        self.dp_longest_rows = 0    # longest query of each batch, summed
+
+    # -- contig lifecycle ---------------------------------------------------
+
+    def register_component(self, comp: int, members: np.ndarray) -> None:
+        self._comp_members[comp] = members
+        self._comp_cursor[comp] = 0
+        self._comp_phase[comp] = 0
+        self.comp_active[comp] = 0
+
+    def expandable_comps(self) -> list[int]:
+        return [c for c, ph in self._comp_phase.items()
+                if ph == 0 and c in self._comp_members]
+
+    def activate_next_in_comp(self, comp: int, fresh_only: bool = False) -> bool:
+        """Claim the next eligible seed of a component; False if none.
+
+        The fresh pass only seeds untouched reads (keeps concurrent contigs
+        separated); the residual pass reclaims unclaimed leftovers and only
+        runs once the component has no live contigs. Iterates until an
+        activated seed actually has work (a seed whose neighbors were all
+        claimed by earlier contigs finalizes instantly).
+        """
+        min_len = max(self.cfg.kmer_size, self.cfg.min_read_len_for_sketch)
+        while True:
+            members = self._comp_members.get(comp)
+            if members is None:
+                return False
+            fresh = self._comp_phase[comp] == 0
+            if not fresh and (fresh_only or self.comp_active.get(comp, 0) > 0):
+                return False
+            cur = self._comp_cursor[comp]
+            seed = -1
+            while cur < len(members):
+                s = int(members[cur])
+                cur += 1
+                if self.claimed[s] or self.store.lengths[s] < min_len:
+                    continue
+                if fresh and self.touched[s]:
+                    continue
+                seed = s
+                break
+            self._comp_cursor[comp] = cur
+            if seed < 0:
+                if fresh:
+                    self._comp_phase[comp] = 1
+                    self._comp_cursor[comp] = 0
+                    continue
+                del self._comp_members[comp]
+                return False
+            if self._activate_seed(seed):
+                return True
+
+    def _activate_seed(self, seed: int) -> bool:
+        """Start a contig at ``seed``; False if it had no live frontier."""
+        self.claimed[seed] = True
+        self.touched[seed] = True
+        cid = self._next_cid
+        self._next_cid += 1
+        st = _ContigState(cid, seed, self.store.get_codes(seed), self.cfg)
+        st.add_seed_member(seed, st.cons)
+        self.states[cid] = st
+        self.visited[cid] = {seed}
+        self.comp_active[int(self.comp_of[seed])] += 1
+        self._enqueue_children(st, seed)
+        if st.pending == 0:
+            self._finalize(st, reseed=False)
+            return False
+        return True
+
+    def _enqueue_children(self, st: _ContigState, rid: int) -> None:
+        vis = self.visited[st.cid]
+        for r2 in self.adj[self.adj_off[rid]: self.adj_off[rid + 1]]:
+            r2 = int(r2)
+            if not self.claimed[r2] and r2 not in vis:
+                vis.add(r2)
+                self.touched[r2] = True
+                self.queue.append(_Item(st.cid, r2, rid))
+                st.pending += 1
+
+    def _finalize(self, st: _ContigState, reseed: bool = True) -> None:
+        if st.cid not in self.states:
+            return
+        del self.states[st.cid]
+        del self.visited[st.cid]
+        if len(st.members) > 1:
+            self.done.append(st)
+        else:
+            self.claimed[st.members[0].rid] = False  # lone after all
+        comp = int(self.comp_of[st.members[0].rid])
+        self.comp_active[comp] -= 1
+        if reseed:
+            # hand the component to its next unclaimed seed (residual reads
+            # the finished contig failed to absorb get their own chance)
+            self.activate_next_in_comp(comp)
+
+    # -- frontier batch -----------------------------------------------------
+
+    def _align(self, tf, t_off, t_len, qf, q_off, q_len, d0) -> al.AlignResult:
+        """Run one frontier batch through ``banded_dp32`` on ``cfg.device``
+        (the kernel on cuda, its plain version on cpu). Every batch goes
+        there: there is no query-length cap and no host route; the band is
+        fixed at [-128, 127] (``CompressConfig`` refuses a wider one)."""
+        t0 = time.perf_counter()
+        n0 = at.banded_dp32.launches
+        res = at.banded_align_batch_32(
+            tf, t_off, t_len, qf, q_off, q_len, d0,
+            max_cost_per_kb=int(self.cfg.max_edit_frac * 1000),
+            device=self.device,
+        )
+        self.dp_launches += at.banded_dp32.launches - n0
+        self.dp_pairs += len(q_len)
+        self.dp_rows += int(np.sum(q_len))
+        self.dp_longest_rows += int(np.max(q_len))
+        self.dp_s += time.perf_counter() - t0
+        return res
+
+    def counters(self) -> dict:
+        return {"dp": self.dp_s, "dp_kernel_launches": self.dp_launches,
+                "dp_kernel_pairs": self.dp_pairs,
+                "dp_kernel_rows": self.dp_rows,
+                "dp_kernel_longest_rows": self.dp_longest_rows}
+
+    def _forward_minimizers(self, rid: int, codes: np.ndarray):
+        a = self._mz_cache.get(rid)
+        if a is None:
+            h, p, f = mz.minimizers(codes, self.cfg.seed_kmer_size,
+                                    self.cfg.seed_window)
+            a = mz.prepare_anchors(h, p.astype(np.int64), f)
+            self._mz_cache[rid] = a
+        return a
+
+    def _place(self, it: _Item) -> _Placed | None:
+        """Host anchoring: candidate -> (orientation, clipped window, d0)."""
+        cfg = self.cfg
+        st = self.states.get(it.cid)
+        if st is None or st.closed:
+            return None
+        pa = st.anchors.get(it.parent)
+        if pa is None:
+            return None
+        codes_fwd = self.store.get_codes(it.rid)
+        r_h, r_p, r_f = self._forward_minimizers(it.rid, codes_fwd)
+        if len(r_h) == 0:
+            return None
+        m = mz.match_anchors_prepared(
+            pa[0], pa[1], pa[2], r_h, r_p, r_f, len(codes_fwd),
+            cfg.seed_kmer_size, max_anchors=cfg.max_chain_iter,
+        )
+        if m is None:
+            return None
+        is_rc, d0_abs, _votes = m
+        codes = _orient_codes(codes_fwd, int(is_rc))
+        mlen = len(codes)
+        band = cfg.band_width
+        # clip the query to the predicted overlap window: overhangs past the
+        # consensus ends would walk out of the band as insertion runs, so
+        # align only [qlo, qhi) and re-attach the clipped ends as head/tail
+        # insertions (which accept() converts to consensus growth).
+        qlo = max(0, (st.lo - d0_abs) - band // 2)
+        qhi = min(mlen, (st.hi - d0_abs) + band // 2)
+        if qhi - qlo < cfg.min_overlap:
+            return None
+        # clip the DP target to the band-reachable consensus window
+        wlo = max(st.lo, d0_abs + qlo - band)
+        whi = min(st.hi, d0_abs + qhi + band)
+        return _Placed(
+            item=it, is_rc=int(is_rc), codes=codes, qlo=qlo, qhi=qhi,
+            wlo=wlo, whi=whi, snap_lo=st.lo, snap_hi=st.hi,
+            d0_win=(d0_abs + qlo) - wlo,
+            fwd_anchors=(r_h, r_p, r_f),
+        )
+
+    def collect_batch(self) -> tuple[list[_Placed], list[_Item]]:
+        """Pop + place up to align_batch frontier items (host-side work)."""
+        batch: list[_Placed] = []
+        consumed: list[_Item] = []
+        while self.queue and len(batch) < self.cfg.align_batch:
+            it = self.queue.pop()
+            consumed.append(it)
+            if self.claimed[it.rid]:
+                continue
+            self.stats.not_claimed += 1
+            p = self._place(it)
+            if p is not None:
+                batch.append(p)
+        return batch, consumed
+
+    def build_arrays(self, batch: list[_Placed]):
+        """Snapshot the batch's DP inputs (targets copied out of the live
+        consensus buffers, so later splices can't corrupt an in-flight DP)."""
+        if not batch:
+            return None
+        t_parts = [self.states[p.item.cid].cons[p.wlo - self.states[p.item.cid].lo:
+                                                p.whi - self.states[p.item.cid].lo]
+                   for p in batch]
+        q_parts = [p.codes[p.qlo:p.qhi] for p in batch]
+        t_len = np.array([len(t) for t in t_parts], dtype=np.int64)
+        q_len = np.array([len(q) for q in q_parts], dtype=np.int64)
+        t_off = np.zeros(len(batch), np.int64)
+        np.cumsum(t_len[:-1], out=t_off[1:])
+        q_off = np.zeros(len(batch), np.int64)
+        np.cumsum(q_len[:-1], out=q_off[1:])
+        return (np.concatenate(t_parts), t_off, t_len,
+                np.concatenate(q_parts), q_off, q_len,
+                np.array([p.d0_win for p in batch], np.int64))
+
+    def apply_batch(self, batch: list[_Placed], consumed: list[_Item],
+                    res: al.AlignResult | None) -> None:
+        if res is not None:
+            for bi, p in enumerate(batch):
+                self._apply(p, res, bi)
+        # decrement pending and finalize drained contigs
+        for it in consumed:
+            st = self.states.get(it.cid)
+            if st is None:
+                continue
+            st.pending -= 1
+            if st.pending == 0:
+                self._finalize(st)
+
+    def run_batch(self) -> None:
+        batch, consumed = self.collect_batch()
+        arrays = self.build_arrays(batch)
+        res = self._align(*arrays) if arrays else None
+        self.apply_batch(batch, consumed, res)
+
+    def _apply(self, p: _Placed, res: al.AlignResult, bi: int) -> None:
+        it = p.item
+        st = self.states.get(it.cid)
+        if st is None or st.closed or self.claimed[it.rid]:
+            return
+        if res.cost[bi] < 0:
+            return
+        mlen = len(p.codes)
+        core_ops = res.ops_flat[res.ops_off[bi]: res.ops_off[bi] + res.ops_len[bi]]
+        ops = np.concatenate([
+            np.full(p.qlo, ord("i"), dtype=np.uint8),
+            core_ops,
+            np.full(mlen - p.qhi, ord("i"), dtype=np.uint8),
+        ])
+        tstart_abs = p.wlo + int(res.tstart[bi])
+        tend_abs = p.wlo + int(res.tend[bi])
+        # The result wanted to splice its overhang onto a consensus end that
+        # another batch member already extended (only the first splicer of
+        # an end wins; coords are absolute so interior results stay valid).
+        # Accepting now would store the whole overhang as insertion runs —
+        # retry instead: once the end stabilizes the overhang aligns
+        # against the newly grown consensus. Bounded by coverage, so the
+        # attempt cap is just a livelock guard.
+        head_run = int(np.argmax(ops != ord("i"))) if (ops != ord("i")).any() else len(ops)
+        tail_run = (int(np.argmax(ops[::-1] != ord("i")))
+                    if (ops != ord("i")).any() else 0)
+        head_lost = head_run > 0 and tstart_abs == p.snap_lo and st.lo != p.snap_lo
+        tail_lost = tail_run > 0 and tend_abs == p.snap_hi and st.hi != p.snap_hi
+        # Stale-placement variant (the DP pipeline places against a snapshot
+        # one batch older): the query was clipped to the snapshot extents and
+        # the contig has since grown past them — a fresh placement would
+        # align the clipped overhang instead of storing it as insertions.
+        head_lost |= head_run > 0 and p.qlo > 0 and st.lo < p.snap_lo
+        tail_lost |= tail_run > 0 and p.qhi < mlen and st.hi > p.snap_hi
+        if (head_lost or tail_lost) and it.attempts < 8:
+            it.attempts += 1
+            self.queue.append(it)
+            st.pending += 1
+            return
+        self.stats.aligned_ok += 1
+        self.claimed[it.rid] = True
+        self._mz_cache.pop(it.rid, None)
+        st.accept(it.rid, p.is_rc, tstart_abs, tend_abs, ops,
+                  int(res.cost[bi]), p.codes, p.fwd_anchors)
+        if self.cfg.checks:
+            _check_member(st, st.members[-1], p.codes)
+        self._enqueue_children(st, it.rid)
+        if st.total_aligned > self.cfg.edge_threshold:
+            st.closed = True
 
 
 def _precompute_minimizers(store, cfg: CompressConfig):
@@ -351,6 +1081,7 @@ def _build_candidate_graph(store, cfg: CompressConfig, stats: FunnelStats,
     # axes, so the gate is deliberately absent — this comment is the
     # record.)
     if (not getattr(cfg, "disable_assembly", False)
+            and cfg.aligner != "python"
             and 0 < store.total_bases <= PREMZ_MAX_BASES):
         import concurrent.futures as _cf
 
@@ -908,12 +1639,105 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
     return g
 
 
+def _grow_components_wavefront(store, cfg: CompressConfig,
+                               stats: FunnelStats, graph: dict,
+                               comp_subset) -> dict:
+    """The Python wavefront grow loop (``aligner="python"``): placement,
+    bookkeeping and polish on the host, each frontier batch's DP in
+    ``banded_dp32`` on ``cfg.device``. A DP error propagates: the pool's
+    ``fut.result()`` re-raises it here."""
+    import collections
+
+    _t0 = time.perf_counter()
+    # repetitive reads are never seeded or claimed (they go lone), matching
+    # the reference's screen (src/Consensus.cpp:203-208,405-424)
+    claimed_for_wf = graph["rep"].copy()
+    wf = _Wavefront(store, cfg, stats, graph["adj_off"], graph["dst"],
+                    claimed_for_wf, graph["comp_of"])
+
+    comp_order = graph["comp_order"]
+    boundaries = graph["boundaries"]
+    expand = collections.deque()
+    for comp in comp_subset:
+        members = comp_order[boundaries[comp]: boundaries[comp + 1]]
+        if len(members) < 2:
+            continue
+        wf.register_component(comp, members)
+        expand.append(comp)
+
+    # main loop: top the frontier up with fresh well-separated seeds
+    # (round-robin over components) so every alignment batch is full.
+    # Two-stage software pipeline: while the banded DP for batch k runs in
+    # a worker thread (torch releases the GIL while it computes or waits),
+    # the main thread places batch k+1 — anchoring/bookkeeping and the DP
+    # overlap instead of alternating (the reference interleaves them inside
+    # each OpenMP thread, src/Consensus.cpp:168-340).
+    import concurrent.futures as _cf
+
+    def _top_up():
+        while len(wf.queue) < cfg.frontier_target and expand:
+            if wf.activate_next_in_comp(expand[0], fresh_only=True):
+                expand.rotate(-1)
+            else:
+                expand.popleft()
+
+    with _cf.ThreadPoolExecutor(1) as _pool:
+        fut = None
+        inflight = None
+        while True:
+            _top_up()
+            batch, consumed = wf.collect_batch()
+            arrays = wf.build_arrays(batch)
+            nfut = _pool.submit(wf._align, *arrays) if arrays else None
+            if inflight is not None:
+                wf.apply_batch(inflight[0], inflight[1],
+                               fut.result() if fut is not None else None)
+            fut = nfut
+            inflight = (batch, consumed) if (batch or consumed) else None
+            # applying a batch can finalize+reseed (new queue items), so
+            # only stop when nothing is in flight and nothing is queued
+            if fut is None and inflight is None and not wf.queue and not expand:
+                break
+    # residual drain: components whose leftovers weren't reseeded yet
+    for comp in list(wf._comp_members.keys()):
+        while wf.activate_next_in_comp(comp):
+            while wf.queue:
+                wf.run_batch()
+    for st in list(wf.states.values()):
+        wf._finalize(st)
+    timings = {"grow": time.perf_counter() - _t0}
+
+    _t0 = time.perf_counter()
+    if cfg.polish_rounds > 0:
+        # substitutions -> indels -> substitutions: the second sub pass
+        # settles columns whose votes shifted when indel columns moved.
+        # One batched native call when available; numpy oracle otherwise.
+        if not _polish_batch_native(wf.done, store):
+            for st in wf.done:
+                _polish_contig(st, store)
+                _polish_indels(st, store)
+                _polish_contig(st, store)
+    timings["polish"] = time.perf_counter() - _t0
+    if cfg.checks:
+        check_contigs(wf.done, store)
+    _t0 = time.perf_counter()
+    g = _emit_group(wf.done, store)
+    timings["emit"] = time.perf_counter() - _t0
+    g["timings"] = {**timings, **wf.counters()}
+    return g
+
+
 def _grow_components(store, cfg: CompressConfig, stats: FunnelStats,
                      graph: dict, comp_subset) -> dict:
     """Grow + polish + emit one contig group for a subset of components.
 
     Components are disjoint in reads, so subsets run with zero coordination
-    (no locks, no shared claim table) — one subset per worker process."""
+    (no locks, no shared claim table) — one subset per worker process.
+    ``aligner="python"`` takes the Python wavefront, the others the C++
+    engine."""
+    if cfg.aligner == "python":
+        return _grow_components_wavefront(store, cfg, stats, graph,
+                                          comp_subset)
     return _grow_components_engine(store, cfg, stats, graph, comp_subset)
 
 
@@ -1012,7 +1836,8 @@ def build_contigs(
             "sketch_kernel_launches", 0)),
         **{k: int(PIPE_STAGES.get(k, 0)) for k in (
             "dp_hook_batches", "dp_kernel_launches", "dp_kernel_pairs",
-            "dp_kernel_rows", "dp_escaped_pairs", "host_routed_long_pairs")})
+            "dp_kernel_rows", "dp_kernel_longest_rows", "dp_escaped_pairs",
+            "host_routed_long_pairs")})
 
     # combine all groups into one ContigBatch
     groups = [g for g in groups if len(g["consensus_list"])]

@@ -74,7 +74,7 @@ def test_failing_dp_hook_raises(fastq, monkeypatch):
 
 def test_unknown_aligner_or_device_raises():
     with pytest.raises(ValueError):
-        CompressConfig(aligner="python")
+        CompressConfig(aligner="tpu")        # the JAX package's name
     with pytest.raises(ValueError):
         CompressConfig(device="tpu")
 

@@ -94,6 +94,46 @@ def test_dp_kernel_matches_plain(dev):
     assert (got[0][-3:] == 0).all() and (got[0] >= 0).sum() > 30
 
 
+def test_dp32_kernel_matches_plain(dev):
+    """The v1 DP kernel against its plain version: one pair above the TPU
+    kernel's 8,192-row cap, short pairs and padding pairs."""
+    rng = np.random.default_rng(3)
+    lens = np.concatenate([[9000], rng.integers(200, 3000, 40)])
+    _order, bufs = at.build_buffers(*_pairs(rng, lens), slots=at.W32)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+    args = [t[k] for k in ("d0", "q_len", "t_len", "max_cost", "tpad",
+                           "queries")]
+    args[1][-3:] = 0                              # padding pairs
+    n0 = at.banded_dp32.launches
+    got = at.banded_dp32(*args)
+    assert at.banded_dp32.launches == n0 + 1
+    ref = at.banded_dp32_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got[:4], ref[:4]):
+        assert torch.equal(g, r)
+    m = args[1].cpu().numpy()
+    g4, r4 = got[4].cpu().numpy(), ref[4].cpu().numpy()
+    for p in range(len(m)):
+        assert np.array_equal(g4[p, : m[p]], r4[p, : m[p]]), p
+    assert (got[0][-3:] == 0).all() and (got[0] >= 0).sum() > 30
+
+
+def test_wavefront_on_cuda_lossless(dev, tmp_path):
+    fq = str(tmp_path / "in.fastq")
+    reads = synth.make_dataset(fq, genome_len=100_000, num_reads=150,
+                               mean_len=3_000, seed=4, realistic=True)
+    arc, out = str(tmp_path / "w.nstpu"), str(tmp_path / "w.reads")
+    res = compressor.compress_file(
+        fq, arc, CompressConfig(aligner="python", pipeline_workers=1),
+        report=False)
+    decompressor.decompress_file(arc, out, report=False)
+    with open(out, "rb") as f:
+        assert f.read().split(b"\n")[:-1] == reads
+    info = res["dp_info"]
+    assert info["dp_backend"] == "python"
+    assert info["dp_kernel_launches"] > 0 and info["dp_kernel_pairs"] > 0
+
+
 def test_compress_on_cuda_lossless(dev, tmp_path):
     fq = str(tmp_path / "in.fastq")
     reads = synth.make_dataset(fq, genome_len=100_000, num_reads=150,

@@ -83,15 +83,16 @@ def test_device_aligner_two_workers_lossless(dataset):
 
 
 def test_from_reference_maps_aligners():
-    # the reference's default "auto" runs its native DP off a TPU
+    # the reference's default "auto" runs its native DP off a TPU; its
+    # "python" wavefront keeps its name (its DP is banded_dp32 here)
     for ref, port in (("tpu", "device"), ("auto", "native"),
-                      ("native", "native")):
+                      ("native", "native"), ("python", "python")):
         cfg = CompressConfig.from_reference(
             dataclasses.asdict(JaxConfig(aligner=ref)))
         assert cfg.aligner == port and cfg.device == "cuda"
     with pytest.raises(ValueError):
         CompressConfig.from_reference(
-            dataclasses.asdict(JaxConfig(aligner="python")))
+            dataclasses.asdict(JaxConfig(aligner="python", band_width=200)))
     port = {f.name for f in dataclasses.fields(CompressConfig)}
     ref = {f.name for f in dataclasses.fields(JaxConfig)}
     assert port - ref == {"device"}
