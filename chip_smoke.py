@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (``nanospring_tpu_torch``) on one NVIDIA
 GPU. Run from the root of the repository:
 
-    python3 chip_smoke.py            # the full check, about 5 minutes
+    python3 chip_smoke.py            # the full check, about 7 minutes
     python3 chip_smoke.py --small    # the same phases on a small dataset
 
 Phases, in order; any failure exits nonzero and nothing is carried on:
@@ -19,18 +19,24 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    (``banded_dp32``) likewise on two batches whose longest queries need
    <= 8,192 rows (the TPU kernel's own shape) and ~32,768 rows (the
    headline's longest read), with its costs against the exact C++ DP at
-   band 128 on the first.
+   band 128 on the first. Then both DP kernels on an edge batch
+   (``edge_pairs``: 1 to 131,072 rows, padding, a rejected pair, invalid
+   slots, a deletion run that escapes), held against the plain version
+   run on the CPU.
 4. main paths, each on the 60 Mb headline set (bench.py's dataset: 2 Mb
    genome, 12,000 reads, mean length 5,000, seed 1234) on cuda with one
    pipeline worker, decompressed and byte-compared, with the kernel launch
    counts set to 0 just before the run and read just after:
    ``compress_file`` with the engine and its device DP hook (the default),
    the same data with the engine's own DP (``aligner="native"``, the ratio
-   anchor), and the Python wavefront with the v1 DP (``aligner="python"``),
-   whose batches are then replayed on the exact C++ DP (band 128) to
-   compare each pair's accept/reject verdict and cost.
+   anchor), and the Python wavefront (``aligner="python"``), which sends
+   batches up to 8,192 rows to the v1 DP and longer ones to the host DP,
+   as the reference does; its kernel batches are then replayed on the
+   exact C++ DP (band 128) to compare each pair's verdict and cost.
 5. times: each kernel at the main paths' shapes with CUDA events (warm-up,
-   then many launches), its plain version's time and its bound.
+   then many launches), its plain version's time and its bound; for the DP
+   kernels also the profiler's time per main-path launch and the cycles
+   per row of a launch's longest query, at the maximum SM clock.
 
 It prints one JSON line listing every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -85,18 +91,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def int32_ops_s() -> float:
-    """Peak 32-bit integer operations per second of card 0: SMs x 64
-    lanes x the maximum SM clock that nvidia-smi reports."""
-    import torch
-
+def max_sm_mhz() -> float:
+    """The maximum SM clock of card 0 that nvidia-smi reports, in MHz."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True)
-    mhz = float(out.stdout.strip().splitlines()[0])
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def int32_ops_s(mhz: float) -> float:
+    """Peak 32-bit integer operations per second of card 0: SMs x 64
+    lanes x the maximum SM clock ``mhz``."""
+    import torch
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def cycles_per_row(ms: float, rows: float, mhz: float) -> float:
+    """Cycles at ``mhz`` per row of a launch's longest query."""
+    return ms * 1e-3 * mhz * 1e6 / max(rows, 1)
 
 
 def timed(fn, reps: int, warm: int = 1) -> float:
@@ -190,6 +205,62 @@ def dp32_batches(rng, small: bool):
             ("v1 (~32,768 rows)", make_pairs(rng, b))]
 
 
+EDGE_LONG = 131_072          # the kernels' row capacity (M_ROWS_MAX)
+
+
+def edge_pairs(rng):
+    """Pairs at the edges of the DP kernels' design, for both kernels:
+    queries of 1, 31, 32 and 33 rows (the forward pass's 32-row register
+    chunks) and 63, 65, 127, 129 and 257 rows (the traceback's 64-row
+    staged chunks), one of 131,072 rows, two padding pairs (q_len 0), an
+    unrelated query (every base mismatches: rejected), d0 at 0 and 3 and
+    at the target's end (invalid slots, code 3), and a 70-base deletion
+    (a left run of 70 slots: ``banded_dp16``'s 255 escape)."""
+    items = []                          # (target, query, d0)
+
+    def copy(t, s, L):
+        q = t[s: s + L].copy()
+        sub = rng.random(L) < 0.05      # substitutions only: stays in band
+        q[sub] = rng.integers(0, 4, int(sub.sum()))
+        return q
+
+    for L in (1, 31, 32, 33, 63, 65, 127, 129, 257, EDGE_LONG):
+        t = rng.integers(0, 4, L + 300).astype(np.uint8)
+        items.append((t, copy(t, 100, L), 100))
+    for _ in range(2):
+        items.append((rng.integers(0, 4, 300).astype(np.uint8),
+                      np.zeros(0, np.uint8), 0))
+    items.append((rng.integers(2, 4, 3000).astype(np.uint8),
+                  rng.integers(0, 2, 2000).astype(np.uint8), 100))
+    t = rng.integers(0, 4, 2000).astype(np.uint8)
+    items += [(t, copy(t, 0, 1500), 0), (t, copy(t, 3, 1500), 3),
+              (t, copy(t, 1000, 1000), 1000),
+              (t, copy(t, 1000, 1000), 1030)]
+    # the deleted bases match no query base, so the 70 deletions stay one
+    # run in one row (slot 24 before it, 94 after)
+    t = rng.integers(0, 3, 1500).astype(np.uint8)
+    t[600:670] = 3
+    items.append((t, np.concatenate([t[100:600], t[670:1170]]), 140))
+    t_len = np.array([len(a) for a, _, _ in items])
+    q_len = np.array([len(b) for _, b, _ in items])
+    return (np.concatenate([a for a, _, _ in items]),
+            np.concatenate([[0], np.cumsum(t_len)[:-1]]), t_len,
+            np.concatenate([b for _, b, _ in items]),
+            np.concatenate([[0], np.cumsum(q_len)[:-1]]), q_len,
+            np.array([d for _, _, d in items]))
+
+
+def edge_parity(kernel, plain, pairs, dev, v1: bool) -> tuple:
+    """The kernel on the card against its plain version on the CPU (the
+    plain version's row loop is faster there at this pair count), on the
+    edge batch; returns (outputs on the CPU, max abs error)."""
+    t = dp_tensors(pairs, None, dev, v1=v1)
+    got = tuple(x.cpu() for x in kernel(*dp_args(t)))
+    t_cpu = {k: v.cpu() for k, v in t.items()}
+    ref = plain(*dp_args(t_cpu))
+    return got, compare_dp(t_cpu, got, ref)
+
+
 def dp_tensors(pairs, m_pad, dev, v1: bool = False):
     import torch
 
@@ -244,7 +315,7 @@ def compare_dp(t, got, ref) -> int:
 
 
 def host_dp_verdicts(batches, al) -> dict:
-    """The wavefront's batches replayed on the exact C++ DP at band 128
+    """The wavefront's kernel batches replayed on the exact C++ DP at band 128
     (``ns_banded_align``, the JAX package's ``aligner="python"`` DP), each
     pair's verdict against the v1 kernel's: accepts on each side, pairs
     only one side accepts, and cost disagreements where both accept. The
@@ -337,9 +408,11 @@ def _run(args, dev, work: str, t_start: float) -> int:
     # 1. device ------------------------------------------------------------
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    ops_s = int32_ops_s()
+    mhz = max_sm_mhz()
+    ops_s = int32_ops_s(mhz)
     log(f"[device] {smi} | torch: {name} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | int32 peak {ops_s / 1e12:.2f} T op/s")
+        f"cuda {torch.version.cuda} | max SM clock {mhz:.0f} MHz | int32 "
+        f"peak {ops_s / 1e12:.2f} T op/s")
 
     # 2. build -------------------------------------------------------------
     t0 = time.time()
@@ -457,6 +530,27 @@ def _run(args, dev, work: str, t_start: float) -> int:
                 fail("v1 DP costs differ from ns_banded_align(band 128)")
             log("[parity] DP v1 batch: costs equal ns_banded_align(band 128)")
 
+    edge = edge_pairs(np.random.default_rng(2026))
+    for kname, kern, plain, v1 in (
+            ("banded_dp16", at.banded_dp16, at.banded_dp16_plain, False),
+            ("banded_dp32", at.banded_dp32, at.banded_dp32_plain, True)):
+        t0 = time.time()
+        got, err = edge_parity(kern, plain, edge, dev, v1)
+        cost, tr = got[0], got[4]
+        rows = (torch.arange(tr.shape[1])[None, :]
+                < torch.from_numpy(np.sort(edge[5])[::-1].copy())[:, None])
+        esc = int((((tr == 255) & rows).any(dim=1) & (cost >= 0)).sum())
+        log(f"[parity] DP edge batch, {kname}: {cost.numel()} pairs, longest "
+            f"{int(edge[5].max())} rows, {int((cost >= 0).sum())} accepted, "
+            f"{int((cost < 0).sum())} rejected, {esc} escaped: byte-equal "
+            f"({time.time() - t0:.1f} s)")
+        if int((cost < 0).sum()) != 1 or (not v1 and esc < 1):
+            fail(f"{kname} edge batch: not one rejected pair, or no escape")
+        if v1:
+            dp32_err = max(dp32_err, err)
+        else:
+            dp_err = max(dp_err, err)
+
     # 4. main path ---------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,6 +659,19 @@ def _run(args, dev, work: str, t_start: float) -> int:
         fail(f"a kernel of the wavefront path never launched: {launches_w}")
     if dpi_w["dp_kernel_launches"] != launches_w["banded_dp32"]:
         fail("the wavefront's launch count disagrees with banded_dp32's")
+    # the reference's route rule: batches up to M_PAD_MAX rows take the
+    # kernel, one launch each; longer ones the host DP
+    longest_w = [int(np.max(a[5])) for a, _ in batches_w]
+    if len(longest_w) != launches_w["banded_dp32"] or \
+            max(longest_w, default=0) > at.M_PAD_MAX:
+        fail(f"{launches_w['banded_dp32']} banded_dp32 launches for "
+             f"{len(longest_w)} batches up to {at.M_PAD_MAX} rows")
+    if not args.small and dpi_w["host_routed_long_pairs"] <= 0:
+        fail("no wavefront batch went to the host DP")
+    log(f"[main] wavefront route: {len(longest_w)} batches up to "
+        f"{at.M_PAD_MAX} rows on banded_dp32, "
+        f"{dpi_w['host_routed_long_pairs']} pairs "
+        f"({dpi_w['host_routed_long_rows']} rows) on the host DP")
     log(f"[main] wavefront batches vs the host DP: "
         f"{json.dumps(host_dp_verdicts(batches_w, al))}")
     del batches_w
@@ -596,8 +703,10 @@ def _run(args, dev, work: str, t_start: float) -> int:
         bms, bby = dp_bound_ms(int(t["q_len"].sum()), t["d0"].numel(),
                                ops_s)
         log(f"[time] banded_dp16 {label}: {ms:.3f} ms per batch of "
-            f"{t['d0'].numel()} pairs ({int(t['q_len'].sum())} rows), "
-            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
+            f"{t['d0'].numel()} pairs ({int(t['q_len'].sum())} rows, "
+            f"{cycles_per_row(ms, int(t['q_len'].max()), mhz):.0f} cycles "
+            f"per longest-query row), plain {plain_ms:.1f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
     # the main path's mean batch: its pair count, with query lengths drawn
     # from the dataset's reads (the hook's M_CAP row capacity)
     n_b = max(1, round(dpi["dp_kernel_pairs"] / max(dpi["dp_hook_batches"],
@@ -618,15 +727,23 @@ def _run(args, dev, work: str, t_start: float) -> int:
     bms, bby = dp_bound_ms(int(t["q_len"].sum()), n_b, ops_s)
     log(f"[time] banded_dp16 main-path batch: {ms:.3f} ms per batch of "
         f"{n_b} pairs ({int(t['q_len'].sum())} rows, longest "
-        f"{int(t['q_len'].max())}), plain {plain_ms:.1f} ms, bound "
-        f"{bms:.4f} ms ({bby})")
-    rows_per_launch = dpi["dp_kernel_rows"] / max(launches["banded_dp16"], 1)
+        f"{int(t['q_len'].max())}, "
+        f"{cycles_per_row(ms, int(t['q_len'].max()), mhz):.0f} cycles per "
+        f"longest-query row), plain {plain_ms:.1f} ms, bound {bms:.4f} ms "
+        f"({bby})")
+    launches16 = max(launches["banded_dp16"], 1)
+    rows_per_launch = dpi["dp_kernel_rows"] / launches16
+    longest_per_launch = dpi["dp_kernel_longest_rows"] / launches16
     pbms, pbby = dp_bound_ms(int(rows_per_launch), n_b, ops_s)
     if "banded_dp16" in prof_ms:
         cnt, tot = prof_ms["banded_dp16"]
+        per = tot / max(cnt, 1)
         log(f"[time] banded_dp16 in the main path (profiler): {cnt} "
-            f"launches, {tot / max(cnt, 1):.3f} ms per launch, "
-            f"{rows_per_launch:.0f} rows per launch, bound {pbms:.4f} ms "
+            f"launches, {tot:.1f} ms in all, {per:.3f} ms per launch, "
+            f"{rows_per_launch:.0f} rows and {longest_per_launch:.0f} "
+            f"longest-query rows per launch, "
+            f"{cycles_per_row(per, longest_per_launch, mhz):.0f} cycles per "
+            f"longest-query row at {mhz:.0f} MHz, bound {pbms:.4f} ms "
             f"({pbby})")
     kernels.append({
         "name": "banded_dp16", "route": "cuda",
@@ -641,13 +758,16 @@ def _run(args, dev, work: str, t_start: float) -> int:
         bms32, bby32 = dp_bound_ms(int(t["q_len"].sum()), t["d0"].numel(),
                                    ops_s, DP32_CELLS)
         log(f"[time] banded_dp32 {label}: {ms32:.3f} ms per batch of "
-            f"{t['d0'].numel()} pairs ({int(t['q_len'].sum())} rows), "
-            f"plain {p_ms:.1f} ms, bound {bms32:.4f} ms ({bby32})")
-    # the wavefront's mean batch: its pair count, with query lengths drawn
-    # from the dataset's reads
+            f"{t['d0'].numel()} pairs ({int(t['q_len'].sum())} rows, "
+            f"{cycles_per_row(ms32, int(t['q_len'].max()), mhz):.0f} cycles "
+            f"per longest-query row), plain {p_ms:.1f} ms, bound "
+            f"{bms32:.4f} ms ({bby32})")
+    # the wavefront's mean kernel batch: its pair count, with query lengths
+    # drawn from the dataset's reads up to the route's M_PAD_MAX rows
     n_w = max(1, round(dpi_w["dp_kernel_pairs"]
                        / max(dpi_w["dp_kernel_launches"], 1)))
-    lens = rng32.choice(store.lengths[store.lengths >= 32], n_w)
+    lens = rng32.choice(store.lengths[(store.lengths >= 32)
+                                      & (store.lengths <= at.M_PAD_MAX)], n_w)
     t = dp_tensors(make_pairs(rng32, lens), None, dev, v1=True)
     ms32 = timed(lambda: at.banded_dp32(*dp_args(t)), reps=10, warm=2)
     got = at.banded_dp32(*dp_args(t))
@@ -662,18 +782,23 @@ def _run(args, dev, work: str, t_start: float) -> int:
     bms32, bby32 = dp_bound_ms(int(t["q_len"].sum()), n_w, ops_s, DP32_CELLS)
     log(f"[time] banded_dp32 wavefront mean batch: {ms32:.3f} ms per batch "
         f"of {n_w} pairs ({int(t['q_len'].sum())} rows, longest "
-        f"{int(t['q_len'].max())}), plain {plain32_ms:.1f} ms, bound "
+        f"{int(t['q_len'].max())}, "
+        f"{cycles_per_row(ms32, int(t['q_len'].max()), mhz):.0f} cycles per "
+        f"longest-query row), plain {plain32_ms:.1f} ms, bound "
         f"{bms32:.4f} ms ({bby32})")
     launches32 = max(launches_w["banded_dp32"], 1)
     rows_w = dpi_w["dp_kernel_rows"] / launches32
     pbms, pbby = dp_bound_ms(int(rows_w), n_w, ops_s, DP32_CELLS)
     if "banded_dp32" in prof_w_ms:
         cnt, tot = prof_w_ms["banded_dp32"]
+        per = tot / max(cnt, 1)
+        longest32 = dpi_w["dp_kernel_longest_rows"] / launches32
         log(f"[time] banded_dp32 in the wavefront run (profiler): {cnt} "
-            f"launches, {tot:.1f} ms in all, {tot / max(cnt, 1):.3f} ms per "
-            f"launch, {rows_w:.0f} rows and "
-            f"{dpi_w['dp_kernel_longest_rows'] / launches32:.0f} longest-"
-            f"query rows per launch, bound {pbms:.4f} ms ({pbby})")
+            f"launches, {tot:.1f} ms in all, {per:.3f} ms per launch, "
+            f"{rows_w:.0f} rows and {longest32:.0f} longest-query rows per "
+            f"launch, {cycles_per_row(per, longest32, mhz):.0f} cycles per "
+            f"longest-query row at {mhz:.0f} MHz, bound {pbms:.4f} ms "
+            f"({pbby})")
     kernels.append({
         "name": "banded_dp32", "route": "cuda",
         "source": "nanospring_tpu_torch/csrc/banded_dp32.cu",

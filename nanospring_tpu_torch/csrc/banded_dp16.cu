@@ -29,34 +29,49 @@
 // INF stays 0x3FFF, the TPU kernels' int16 sentinel, although int32 lanes
 // could hold more: costs at or above it escape exactly as they do there.
 //
-// Design. One warp per pair, 4 slots per lane. A row is one pass over the
-// lane's 4 slots, an up-neighbour __shfl_down_sync, and a prefix-min of
-// (base - k) across lanes with __shfl_up_sync. The 4 direction codes of a
-// lane (3 bits each) go to device memory as one uint16, so a row is one
-// coalesced 64-byte store; the scratch is sized by the wrapper to the
-// batch's own longest query. The traceback reads a row back, finds kp with
-// one __ballot_sync per sub-slot and fetches its code with __shfl_sync.
+// Design: banded_dp_common.cuh's kernel (one warp per pair, target bytes
+// in registers, records built beside the chain, the traceback walked by one
+// thread over records staged with cp.async), at 4 slots per lane; a record
+// is 96 B: the lanes' 3-bit codes as one uint16 each, then 4 "not left"
+// and 4 "up" masks.
 //
-// Bound. The row recurrence is a dependent chain (each row needs the whole
-// previous row and a warp-wide scan), so a warp is latency bound; at the
-// engine's 512 pairs per batch there are 512 warps, a few per SM. The
-// inputs and the trace are a few bytes per row; the operations bound
-// (about 8 integer operations per cell) is far below what the chain
-// allows. Raising occupancy and staging target windows in shared memory
-// is later work.
+// Bound. A launch costs its longest query's rows times the chain's cycles
+// per row. On an H100 80GB HBM3 at 700 W (a clock64()-stamped build, 58
+// pairs, longest 14,156 rows, cycles at the 1,980 MHz maximum SM clock)
+// that is 594 cycles per row: 413 in the forward row and 180 in the
+// traceback row. The operations bound that PERF.md uses counts 8
+// integer operations per band cell (128 cells per row) at the card's int32
+// throughput, and the bytes are a few per row: both far below what the
+// chain allows.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "banded_dp_common.cuh"
+
 namespace {
 
-constexpr int KOFF = 64;
-constexpr int W = 128;              // band slots
-constexpr int INF = 0x3FFF;
-constexpr int BIG = 1 << 20;        // invalid final slot
-constexpr int WARPS_PER_BLOCK = 4;
-constexpr unsigned FULL = 0xFFFFFFFFu;
+struct Dp16 {
+    static constexpr int SPL = 4;                 // 128 slots
+    static constexpr int KOFF = 64;
+    static constexpr int INF = 0x3FFF;
+    static constexpr bool SLOT0_VALID = false;
+    static constexpr int BL0 = 1 << 20;           // invalid final slot
+    static constexpr int FINAL_INVALID = 1 << 20;
+    static constexpr int CODE_BITS = 3;
+    using Code = uint16_t;
+    using Trace = uint8_t;
+    // trace byte op2 << 6 | dels, 255 on escape; escaped rows add no dels
+    __device__ static uint8_t output(int dv, int dels, int& ndel) {
+        const int optype = dv < 0 ? 3 : (dv & 3);
+        const int mbit = dv < 0 ? -1 : (dv >> 2);
+        const int op2 = optype == 1 ? 2 : (mbit == 1 ? 0 : 1);
+        const bool esc = dels > 62 || optype >= 3 || dv < 0;
+        if (!esc) ndel += dels;
+        return esc ? 255 : (uint8_t)((op2 << 6) | dels);
+    }
+};
 
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+__global__ void __launch_bounds__(32)
 banded_dp16_kernel(const int32_t* __restrict__ d0s,
                    const int32_t* __restrict__ qlens,
                    const int32_t* __restrict__ tlens,
@@ -68,130 +83,12 @@ banded_dp16_kernel(const int32_t* __restrict__ d0s,
                    int32_t* __restrict__ ts_out,
                    int32_t* __restrict__ te_out,
                    uint8_t* __restrict__ trace, int64_t tr_stride,
-                   uint16_t* __restrict__ dirs, int64_t dirs_rows,
+                   uint8_t* __restrict__ dirs, int64_t dirs_rows,
                    int n_pairs)
 {
-    const int pair = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (pair >= n_pairs) return;
-    const int m = qlens[pair];
-    if (m <= 0) {                    // padding pair: nothing to align
-        if (lane == 0) {
-            cost_out[pair] = 0; len_out[pair] = 0;
-            ts_out[pair] = 0; te_out[pair] = 0;
-        }
-        return;
-    }
-    const int d0 = d0s[pair];
-    const int n = tlens[pair];
-    const int maxc = maxcs[pair];
-    const uint8_t* t = tpad + (int64_t)pair * t_stride;
-    const uint8_t* q = qbuf + (int64_t)pair * q_stride;
-    uint16_t* dir = dirs + (int64_t)pair * dirs_rows * 32;
-    uint8_t* tr = trace + (int64_t)pair * tr_stride;
-    const int k0 = 4 * lane;
-
-    int prev[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int k = k0 + r;
-        const int j0 = d0 + k - KOFF;
-        prev[r] = (k >= 1 && j0 >= 0 && j0 <= n) ? 0 : INF;
-    }
-
-    for (int i = 1; i <= m; ++i) {
-        const int qc = q[i - 1];
-        const int nxt = __shfl_down_sync(FULL, prev[0], 1);
-        int diag[4], up[4], base[4], x[4];
-        bool match[4], jval[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int k = k0 + r;
-            const int j = d0 + i + k - KOFF;
-            jval[r] = k >= 1 && j >= 0 && j <= n;
-            const bool dval = j >= 1 && j <= n;
-            match[r] = t[i + k] == qc;
-            diag[r] = (dval && prev[r] < INF) ? prev[r] + (match[r] ? 0 : 1)
-                                              : INF;
-            const int u = r < 3 ? prev[r + 1] : nxt;
-            up[r] = (k < W - 1 && u < INF) ? u + 1 : INF;
-            base[r] = jval[r] ? min(diag[r], up[r]) : INF;
-            x[r] = base[r] - k;
-            if (r > 0) x[r] = min(x[r], x[r - 1]);
-        }
-        // inclusive scan of the lane minima, then the exclusive carry-in
-        int tot = x[3];
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const int v = __shfl_up_sync(FULL, tot, off);
-            if (lane >= off) tot = min(tot, v);
-        }
-        int carry = __shfl_up_sync(FULL, tot, 1);
-        if (lane == 0) carry = INF;
-        uint32_t codes = 0;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int k = k0 + r;
-            const int left = min(x[r], carry) + k;
-            const int cur = jval[r] ? min(base[r], left) : INF;
-            int d = cur == diag[r] ? (match[r] ? 4 : 0)
-                                   : (cur == up[r] ? 1 : 2);
-            if (cur >= INF) d = 3;
-            codes |= (uint32_t)d << (3 * r);
-            prev[r] = cur;
-        }
-        dir[(int64_t)(i - 1) * 32 + lane] = (uint16_t)codes;
-    }
-
-    int bl = BIG, bkl = W;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int k = k0 + r;
-        const int jm = d0 + m + k - KOFF;
-        const int f = (k >= 1 && jm >= 0 && jm <= n) ? prev[r] : BIG;
-        if (f < bl) { bl = f; bkl = k; }
-    }
-    const int best = __reduce_min_sync(FULL, bl);
-    const int best_k = __reduce_min_sync(FULL, bl == best ? bkl : W);
-
-    if (best > maxc) {               // rejected: cost -1, zero trace rows
-        for (int i = lane; i < m; i += 32) tr[i] = 0;
-        if (lane == 0) {
-            cost_out[pair] = -1; len_out[pair] = 0;
-            ts_out[pair] = 0; te_out[pair] = 0;
-        }
-        return;
-    }
-
-    int kk = best_k;
-    int ndel = 0;
-    for (int i = m; i >= 1; --i) {
-        const uint32_t codes = dir[(int64_t)(i - 1) * 32 + lane];
-        int kp = -1;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const uint32_t d = (codes >> (3 * r)) & 7u;
-            const unsigned bal =
-                __ballot_sync(FULL, (d & 3u) != 2u && k0 + r <= kk);
-            if (bal) kp = max(kp, 4 * (31 - __clz(bal)) + r);
-        }
-        const uint32_t src = __shfl_sync(FULL, codes, kp >= 0 ? kp >> 2 : 0);
-        const int dv = kp >= 0 ? (int)((src >> (3 * (kp & 3))) & 7u) : -1;
-        const int optype = dv < 0 ? 3 : (dv & 3);
-        const int mbit = dv < 0 ? -1 : (dv >> 2);
-        const int dels = kk - kp;
-        const int op2 = optype == 1 ? 2 : (mbit == 1 ? 0 : 1);
-        const bool esc = dels > 62 || optype >= 3 || dv < 0;
-        if (lane == 0) tr[i - 1] = esc ? 255 : (uint8_t)((op2 << 6) | dels);
-        kk = kp + (optype == 1 ? 1 : 0);
-        if (!esc) ndel += dels;
-    }
-    if (lane == 0) {
-        cost_out[pair] = best;
-        len_out[pair] = m + ndel;
-        ts_out[pair] = d0 + kk - KOFF;
-        te_out[pair] = d0 + m + best_k - KOFF;
-    }
+    nsdp::banded_dp<Dp16>(d0s, qlens, tlens, maxcs, tpad, t_stride, qbuf,
+                          q_stride, cost_out, len_out, ts_out, te_out, trace,
+                          tr_stride, dirs, dirs_rows, n_pairs);
 }
 
 }  // namespace
@@ -204,16 +101,18 @@ extern "C" int ns_banded_dp16_launch(
     int n_pairs, void* stream)
 {
     if (n_pairs <= 0) return 0;
-    const int blocks = (n_pairs + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-    banded_dp16_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0,
+    banded_dp16_kernel<<<n_pairs, 32, nsdp::smem_bytes<Dp16>(),
                          (cudaStream_t)stream>>>(
         (const int32_t*)d0, (const int32_t*)qlen, (const int32_t*)tlen,
         (const int32_t*)maxc, (const uint8_t*)tpad, t_stride,
         (const uint8_t*)qbuf, q_stride, (int32_t*)cost, (int32_t*)ops_len,
         (int32_t*)ts, (int32_t*)te, (uint8_t*)trace, tr_stride,
-        (uint16_t*)dirs, dirs_rows, n_pairs);
+        (uint8_t*)dirs, dirs_rows, n_pairs);
     return (int)cudaGetLastError();
 }
+
+// Bytes of one row of the `dirs` scratch the launcher expects.
+extern "C" int ns_banded_dp16_row_bytes() { return nsdp::row_bytes<Dp16>(); }
 
 // Strided copy of `height` rows of `width` bytes between host and device
 // (either direction), on `stream`: the device DP hook moves only the used

@@ -5,7 +5,7 @@ the objects are linked into one shared library with a plain C interface,
 ``_build/libnstpu_kernels.so``, loaded with ctypes. The build runs at first
 use, never at import: a machine without ``nvcc`` (the CPU test hosts) can
 import every module and runs the kernels' plain PyTorch versions instead.
-The library is rebuilt when any source is newer than it.
+The library is rebuilt when any source or header is newer than it.
 
 Every exported launcher takes device pointers and the CUDA stream as
 ``c_void_p``, returns ``cudaGetLastError()`` right after its launch, and
@@ -25,6 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sketch.cu", "banded_dp16.cu", "banded_dp32.cu")
+HEADERS = ("banded_dp_common.cuh",)
 _SO_NAME = "libnstpu_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
 
@@ -49,7 +50,7 @@ def _needs_build(so_path: str) -> bool:
         return True
     so_mtime = os.path.getmtime(so_path)
     return any(os.path.getmtime(os.path.join(CSRC, s)) > so_mtime
-               for s in SOURCES)
+               for s in SOURCES + HEADERS)
 
 
 def build(verbose: bool = False) -> str:
@@ -113,6 +114,10 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_banded_dp32_launch.restype = i32
             lib.ns_banded_dp32_launch.argtypes = \
                 lib.ns_banded_dp16_launch.argtypes
+            lib.ns_banded_dp16_row_bytes.restype = i32
+            lib.ns_banded_dp16_row_bytes.argtypes = []
+            lib.ns_banded_dp32_row_bytes.restype = i32
+            lib.ns_banded_dp32_row_bytes.argtypes = []
             lib.ns_copy2d.restype = i32
             lib.ns_copy2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
             lib.ns_cuda_error_string.restype = ctypes.c_char_p

@@ -43,6 +43,11 @@ _BIG = 1 << 20          # invalid final slot
 W32 = 256               # v1 band slots: k <-> diagonal offset k - 128
 KOFF32 = 128
 INF32 = 1 << 30
+# The reference's route rule for the Python wavefront: a batch whose longest
+# query is at most this many rows goes to the v1 DP, a longer one to the
+# exact host DP. It is the JAX route's rule (there it is the TPU's VMEM cap),
+# not a limit of banded_dp32, which takes up to M_ROWS_MAX rows.
+M_PAD_MAX = 8192
 # buffer layout by band slots: (koff, extra target width, extra query width)
 _LAYOUT = {W16: (KOFF16, 3 * W16, 2 * W16),     # the engine hook's ABI
            W32: (KOFF32, W32, 0)}
@@ -170,9 +175,10 @@ def banded_dp16(d0, q_len, t_len, max_cost, tpad, queries,
     lib = _cuda.get_lib()
     out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(4)]
     trace = torch.empty((P, max(m_rows, 1)), dtype=torch.uint8, device=dev)
-    # direction codes: one uint16 (4 slots x 3 bits) per lane per row
-    dirs = torch.empty((P, max(m_rows, 1), 32), dtype=torch.int16,
-                       device=dev)
+    # direction records, one per row, of the size the kernel states: one
+    # uint16 (4 slots x 3 bits) per lane, then 4 not-left and 4 up masks
+    dirs = torch.empty((P, max(m_rows, 1), lib.ns_banded_dp16_row_bytes()),
+                       dtype=torch.uint8, device=dev)
     if P == 0:
         return (*out, trace[:, :m_rows])
     rc = lib.ns_banded_dp16_launch(
@@ -442,9 +448,10 @@ def banded_dp32(d0, q_len, t_len, max_cost, tpad, queries,
     lib = _cuda.get_lib()
     out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(4)]
     trace = torch.empty((P, max(m_rows, 1)), dtype=torch.int32, device=dev)
-    # direction codes: one 32-bit word (8 slots x 4 bits) per lane per row
-    dirs = torch.empty((P, max(m_rows, 1), 32), dtype=torch.int32,
-                       device=dev)
+    # direction records, one per row, of the size the kernel states: one
+    # 32-bit word (8 slots x 4 bits) per lane, then 8 not-left and 8 up masks
+    dirs = torch.empty((P, max(m_rows, 1), lib.ns_banded_dp32_row_bytes()),
+                       dtype=torch.uint8, device=dev)
     if P == 0:
         return (*out, trace[:, :m_rows])
     rc = lib.ns_banded_dp32_launch(
@@ -472,7 +479,8 @@ def banded_align_batch_32(targets_flat, t_off, t_len, queries_flat, q_off,
     (longest first), ``max_cost = q_len * max_cost_per_kb // 1000 + 8``,
     the per-row records expanded into op bytes with numpy, the sort undone.
     Unlike it, queries are not capped at 8,192 rows (the TPU's VMEM limit):
-    ``banded_dp32`` takes up to ``M_ROWS_MAX``."""
+    ``banded_dp32`` takes up to ``M_ROWS_MAX``. The wavefront sends it only
+    batches up to ``M_PAD_MAX`` rows, as the reference does."""
     P = len(q_len)
     if P == 0:
         z = np.zeros(0, np.int64)

@@ -741,9 +741,11 @@ class _Wavefront:
         self.device = cfg.torch_device()
         self.dp_s = 0.0             # wall inside _align (its own thread)
         self.dp_launches = 0        # CUDA kernel launches (0 on cpu)
-        self.dp_pairs = 0           # pairs sent to the DP
+        self.dp_pairs = 0           # pairs sent to banded_dp32
         self.dp_rows = 0            # query rows of those pairs
-        self.dp_longest_rows = 0    # longest query of each batch, summed
+        self.dp_longest_rows = 0    # longest query of each such batch, summed
+        self.host_pairs = 0         # pairs of batches over M_PAD_MAX rows,
+        self.host_rows = 0          # sent to the host DP, and their rows
 
     # -- contig lifecycle ---------------------------------------------------
 
@@ -842,21 +844,34 @@ class _Wavefront:
     # -- frontier batch -----------------------------------------------------
 
     def _align(self, tf, t_off, t_len, qf, q_off, q_len, d0) -> al.AlignResult:
-        """Run one frontier batch through ``banded_dp32`` on ``cfg.device``
-        (the kernel on cuda, its plain version on cpu). Every batch goes
-        there: there is no query-length cap and no host route; the band is
-        fixed at [-128, 127] (``CompressConfig`` refuses a wider one)."""
+        """Run one frontier batch by the reference's route rule: a batch
+        whose longest query is at most ``at.M_PAD_MAX`` rows goes to
+        ``banded_dp32`` on ``cfg.device`` (the kernel on cuda, its plain
+        version on cpu; band fixed at [-128, 127], ``CompressConfig``
+        refuses a wider one), a longer one to the exact host DP at
+        ``cfg.band_width``. The split depends on the query length alone."""
         t0 = time.perf_counter()
-        n0 = at.banded_dp32.launches
-        res = at.banded_align_batch_32(
-            tf, t_off, t_len, qf, q_off, q_len, d0,
-            max_cost_per_kb=int(self.cfg.max_edit_frac * 1000),
-            device=self.device,
-        )
-        self.dp_launches += at.banded_dp32.launches - n0
-        self.dp_pairs += len(q_len)
-        self.dp_rows += int(np.sum(q_len))
-        self.dp_longest_rows += int(np.max(q_len))
+        cfg = self.cfg
+        longest = int(np.max(q_len))
+        if longest > at.M_PAD_MAX:
+            res = al.banded_align_batch(
+                tf, t_off, t_len, qf, q_off, q_len, d0,
+                band=cfg.band_width,
+                max_cost_per_kb=int(cfg.max_edit_frac * 1000),
+            )
+            self.host_pairs += len(q_len)
+            self.host_rows += int(np.sum(q_len))
+        else:
+            n0 = at.banded_dp32.launches
+            res = at.banded_align_batch_32(
+                tf, t_off, t_len, qf, q_off, q_len, d0,
+                max_cost_per_kb=int(cfg.max_edit_frac * 1000),
+                device=self.device,
+            )
+            self.dp_launches += at.banded_dp32.launches - n0
+            self.dp_pairs += len(q_len)
+            self.dp_rows += int(np.sum(q_len))
+            self.dp_longest_rows += longest
         self.dp_s += time.perf_counter() - t0
         return res
 
@@ -864,7 +879,9 @@ class _Wavefront:
         return {"dp": self.dp_s, "dp_kernel_launches": self.dp_launches,
                 "dp_kernel_pairs": self.dp_pairs,
                 "dp_kernel_rows": self.dp_rows,
-                "dp_kernel_longest_rows": self.dp_longest_rows}
+                "dp_kernel_longest_rows": self.dp_longest_rows,
+                "host_routed_long_pairs": self.host_pairs,
+                "host_routed_long_rows": self.host_rows}
 
     def _forward_minimizers(self, rid: int, codes: np.ndarray):
         a = self._mz_cache.get(rid)
@@ -1273,6 +1290,7 @@ class _DeviceDpHook:
         self.batches = 0            # batches the hook ran
         self.pairs = 0              # pairs sent to the DP
         self.rows = 0               # query rows of those pairs
+        self.longest_rows = 0       # longest query of each batch, summed
         self.escaped = 0            # accepted pairs with a 255 trace byte
         self.kernel_launches = 0    # CUDA kernel launches (0 on cpu)
         self.error: BaseException | None = None
@@ -1301,6 +1319,7 @@ class _DeviceDpHook:
         self.batches += 1
         self.pairs += P
         self.rows += int(q_len[:P].sum())
+        self.longest_rows += m_rows
         scal = ("d0", "q_len", "t_len", "max_cost")
         if self.dev is None:
             args = [torch.from_numpy(h[k][:P]) for k in scal]
@@ -1350,6 +1369,7 @@ class _DeviceDpHook:
                 "dp_kernel_launches": self.kernel_launches,
                 "dp_kernel_pairs": self.pairs,
                 "dp_kernel_rows": self.rows,
+                "dp_kernel_longest_rows": self.longest_rows,
                 "dp_escaped_pairs": self.escaped}
 
     def install(self, mode: int) -> None:
@@ -1837,7 +1857,7 @@ def build_contigs(
         **{k: int(PIPE_STAGES.get(k, 0)) for k in (
             "dp_hook_batches", "dp_kernel_launches", "dp_kernel_pairs",
             "dp_kernel_rows", "dp_kernel_longest_rows", "dp_escaped_pairs",
-            "host_routed_long_pairs")})
+            "host_routed_long_pairs", "host_routed_long_rows")})
 
     # combine all groups into one ContigBatch
     groups = [g for g in groups if len(g["consensus_list"])]

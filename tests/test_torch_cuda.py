@@ -118,6 +118,30 @@ def test_dp32_kernel_matches_plain(dev):
     assert (got[0][-3:] == 0).all() and (got[0] >= 0).sum() > 30
 
 
+@pytest.mark.parametrize("v1", [False, True], ids=["dp16", "dp32"])
+def test_dp_kernel_edge_batch(dev, v1):
+    """Both DP kernels at the edges of their design (``chip_smoke.py``'s
+    edge batch): queries of 1, 31, 32, 33, 63, 65, 127, 129, 257 and
+    131,072 rows,
+    padding pairs, a rejected unrelated query, d0 at both ends of the
+    target, and a 70-base deletion run (``banded_dp16``'s 255 escape);
+    byte-equal to the plain version, run on the CPU copy of the inputs."""
+    import chip_smoke as cs
+
+    edge = cs.edge_pairs(np.random.default_rng(2026))
+    kern, plain = ((at.banded_dp32, at.banded_dp32_plain) if v1
+                   else (at.banded_dp16, at.banded_dp16_plain))
+    got, err = cs.edge_parity(kern, plain, edge, dev, v1)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert int((got[0] < 0).sum()) == 1
+    assert int((got[0] == 0).sum()) >= 2              # the padding pairs
+    if not v1:
+        q_len = torch.from_numpy(np.sort(edge[5])[::-1].copy())
+        rows = torch.arange(got[4].shape[1])[None, :] < q_len[:, None]
+        assert bool(((got[4] == 255) & rows).any())
+
+
 def test_wavefront_on_cuda_lossless(dev, tmp_path):
     fq = str(tmp_path / "in.fastq")
     reads = synth.make_dataset(fq, genome_len=100_000, num_reads=150,
