@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    (``csrc/*.cu``, one nvcc per source, all started together).
 3. parity: each kernel against its plain PyTorch version on the card:
    the sketch on every read of the headline set at k=23 and k=17
-   (bit-equal), and the banded DP on three hook-shaped batches whose
+   (bit-equal) and on an edge store (``sketch_edge_store``: read lengths
+   around k, the minimum length and the kernel's tiles, empty reads, the
+   last read flush with the store) at k = 17, 23 and 32 and 1 to 256
+   seeds, and the banded DP on three hook-shaped batches whose
    longest queries need <= 8,192, ~32,768 and > 65,536 rows (byte-equal
    cost / ops_len / tstart / tend / trace rows); plus the DP's costs
    against the exact C++ DP (W=63) on the first batch. The v1 DP
@@ -36,7 +39,9 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
 5. times: each kernel at the main paths' shapes with CUDA events (warm-up,
    then many launches), its plain version's time and its bound; for the DP
    kernels also the profiler's time per main-path launch and the cycles
-   per row of a launch's longest query, at the maximum SM clock.
+   per row of a launch's longest query, at the maximum SM clock; for the
+   sketch also the split of one pass as the pipeline makes it (copies to
+   the card, kernel, copy back) beside the ``sketch_join`` stage.
 
 It prints one JSON line listing every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -69,6 +74,7 @@ ANCHOR_BASES = 60_023_697
 # and maximum SM clock (int32_ops_s).
 HBM_BYTES_S = 3.35e12
 INT32_LANES_PER_SM = 64
+SKETCH_MULS_PER_HASH = 2     # y * a + z * b: a multiply and a multiply-add
 DP_OPS_PER_CELL = 8          # 2 adds, 3 mins, 2 +/-k, 1 code compare
 DP16_CELLS = 128             # band cells per query row, banded_dp16
 DP32_CELLS = 256             # and banded_dp32
@@ -259,6 +265,115 @@ def edge_parity(kernel, plain, pairs, dev, v1: bool) -> tuple:
     t_cpu = {k: v.cpu() for k, v in t.items()}
     ref = plain(*dp_args(t_cpu))
     return got, compare_dp(t_cpu, got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the sketch kernel's edge store
+# ---------------------------------------------------------------------------
+
+SKETCH_EDGE_KS = (17, 23, 32)
+SKETCH_EDGE_SEEDS = (1, 31, 32, 33, 60, 64, 65, 255, 256)
+# position counts at which the kernel's work changes hands: a quarter of a
+# tile, a tile (4,096 positions), and the 4 tiles that the blocks of one
+# read take in one round (csrc/sketch.cu: TILE, SPLIT)
+SKETCH_EDGE_TILES = (1024, 4096, 16384)
+
+
+def sketch_edge_store(rng, k: int, empty_last: bool = False):
+    """A packed store (bytes, byte offsets, lengths) of random reads at
+    the edges of the sketch kernel's design: lengths 0, 1, k-1, k, k+1 and
+    31, 32, 33 (below, at and above the pipeline's minimum length), one
+    position short of, exactly at and one past each count of
+    ``SKETCH_EDGE_TILES``, reads over two and five tiles, an empty read in
+    the middle, and a last read that fills its last byte, sized so that
+    the store's bytes are not a multiple of 8: the last k-mer's 64-bit
+    window ends flush with the store. ``empty_last`` appends a read of
+    length 0 at the store's end."""
+    from nanospring_tpu_torch.io import packed as pk
+
+    lens = [0, 1, k - 1, k, k + 1, 31, 32, 33, 57, 250]
+    for tile in SKETCH_EDGE_TILES:
+        lens += [tile + k - 2, tile + k - 1, tile + k]
+    tile = SKETCH_EDGE_TILES[1]
+    lens += [2 * tile + k + 1, 0, 5 * tile + k + 5, 2051]
+    last = 4 * 75
+    while (sum(-(-n // 4) for n in lens) + last // 4) % 8 == 0:
+        last += 4
+    lens.append(last)
+    if empty_last:
+        lens.append(0)
+    parts = [pk.pack_codes(rng.integers(0, 4, n).astype(np.uint8))
+             for n in lens]
+    nbytes = np.array([len(p) for p in parts], np.int64)
+    return (np.concatenate(parts).astype(np.uint8),
+            np.concatenate([[0], np.cumsum(nbytes)[:-1]]).astype(np.int64),
+            np.array(lens, np.int64))
+
+
+def sketch_edge_parity(dev) -> int:
+    """The sketch kernel against its plain version, bit for bit, on the
+    edge store at every k of ``SKETCH_EDGE_KS`` and every seed count of
+    ``SKETCH_EDGE_SEEDS`` with the pipeline's minimum length, and at 60
+    seeds with the minimum length k; returns the number of cases, or
+    fails."""
+    import torch
+
+    from nanospring_tpu_torch.ops import sketch as sk
+
+    cases = 0
+    for k in SKETCH_EDGE_KS:
+        store = [torch.from_numpy(a).to(dev) for a in
+                 sketch_edge_store(np.random.default_rng(2027 + k), k)]
+        for n, min_len in [(n, max(k, 32)) for n in SKETCH_EDGE_SEEDS] \
+                + [(60, k)]:
+            seeds = torch.from_numpy(
+                sk.make_seeds(n, 77 + n).astype(np.int64)).to(dev)
+            got = sk.sketch_reads(*store, seeds, k, min_len)
+            ref = sk.sketch_reads_plain(*store, seeds, k, min_len)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad = (got != ref).any(dim=1).nonzero()[:5, 0].tolist()
+                fail(f"sketch edge store k={k}, {n} seeds, min_len "
+                     f"{min_len}: differs from the plain version at reads "
+                     f"{bad} (lengths {store[2][bad].tolist()})")
+            short = store[2] < min_len
+            if not bool((got[short] == -1).all()) or \
+                    bool((got[~short] == -1).all(dim=1).any()):
+                fail(f"sketch edge store k={k}, {n} seeds: EMPTY rows are "
+                     f"not exactly the reads under {min_len} bases")
+            cases += 1
+    return cases
+
+
+def sketch_pass_split(store, cfg, dev) -> dict:
+    """One sketch pass made as ``compute_all_sketches`` makes it (host
+    arrays in pageable memory to the card, one kernel launch, the sketches
+    back to the host), with a CUDA event between the parts: milliseconds
+    of each."""
+    import torch
+
+    from nanospring_tpu_torch.ops import sketch as sk
+
+    host = [np.ascontiguousarray(store.packed), store.offsets, store.lengths,
+            sk.make_seeds(cfg.num_hashes, cfg.sketch_seed).astype(np.int64)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    on_card = [torch.from_numpy(a).to(dev) for a in host]
+    ev[1].record()
+    out = sk.sketch_reads(*on_card, cfg.kmer_size,
+                          max(cfg.kmer_size, cfg.min_read_len_for_sketch))
+    ev[2].record()
+    res = sk.as_uint32(out)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {"h2d_ms": ev[0].elapsed_time(ev[1]),
+            "launch_ms": ev[1].elapsed_time(ev[2]),
+            "d2h_ms": ev[2].elapsed_time(ev[3]),
+            "host_wall_ms": (time.perf_counter() - t0) * 1e3,
+            "h2d_bytes": int(sum(a.nbytes for a in host)),
+            "d2h_bytes": int(res.nbytes)}
 
 
 def dp_tensors(pairs, m_pad, dev, v1: bool = False):
@@ -476,6 +591,13 @@ def _run(args, dev, work: str, t_start: float) -> int:
         log(f"[parity] sketch k={k}: {store.num_reads} reads bit-equal "
             f"({empty} empty)")
 
+    t0 = time.time()
+    n_edge = sketch_edge_parity(dev)
+    log(f"[parity] sketch edge store: {n_edge} cases (k in "
+        f"{list(SKETCH_EDGE_KS)}, seeds in {list(SKETCH_EDGE_SEEDS)}, "
+        f"minimum length k and max(k, 32)) bit-equal "
+        f"({time.time() - t0:.1f} s)")
+
     rng = np.random.default_rng(2024)
     dp_rows = {}
     dp_err = 0
@@ -684,7 +806,12 @@ def _run(args, dev, work: str, t_start: float) -> int:
         lengths >= max(k, min_len)].sum())
     sk_bytes = packed.numel() + 16 * lengths.numel() + \
         4 * lengths.numel() * seeds.shape[0]
-    sk_ops = n_pos * seeds.shape[0] * 4
+    # per (k-mer, seed): a multiply, a multiply-add and one minimum.
+    # The multiplies alone fill the SM's 64 multiply lanes; the minima go
+    # to another pipe beside them, so the multiplies are the least time
+    # (all 4 operations counted through those 64 lanes give twice that, a
+    # time the kernel runs under: no bound).
+    sk_ops = n_pos * seeds.shape[0] * SKETCH_MULS_PER_HASH
     tb, to = sk_bytes / HBM_BYTES_S * 1e3, sk_ops / ops_s * 1e3
     kernels = [{
         "name": "sketch", "route": "cuda",
@@ -697,7 +824,12 @@ def _run(args, dev, work: str, t_start: float) -> int:
     }]
     log(f"[time] sketch: {sk_ms:.4f} ms per launch ({store.num_reads} "
         f"reads, {n_pos} k-mers), plain {sk_plain_ms:.1f} ms, bound "
-        f"{max(tb, to):.4f} ms")
+        f"{max(tb, to):.4f} ms (the multiplies; {2 * to:.4f} ms if all 4 "
+        f"operations per k-mer and seed went through the same 64 lanes)")
+    split = sketch_pass_split(store, cfg0, dev)
+    log(f"[time] sketch pass as the pipeline makes it: "
+        f"{json.dumps(split)}; sketch_join stage of the device-DP run "
+        f"{res['pipe_split'].get('sketch_join', float('nan')):.4f} s")
     for label, (t, plain_ms) in dp_rows.items():
         ms = timed(lambda: at.banded_dp16(*dp_args(t)), reps=5, warm=1)
         bms, bby = dp_bound_ms(int(t["q_len"].sum()), t["d0"].numel(),

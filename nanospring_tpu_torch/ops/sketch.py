@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 EMPTY_SLOT = np.uint32(0xFFFFFFFF)  # sketch value for invalid/short reads
-MAX_SEEDS = 256                     # csrc/sketch.cu: 4 running minima/thread
+MAX_SEEDS = 256                     # csrc/sketch.cu: 32 lanes x 8 seeds each
 _M32 = 0xFFFFFFFF
 
 

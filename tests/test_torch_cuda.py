@@ -72,6 +72,25 @@ def test_sketch_kernel_matches_plain(dev):
         assert torch.equal(got, ref), k
 
 
+def test_sketch_kernel_edge_batch(dev):
+    """The sketch kernel at the edges of its design (``chip_smoke.py``'s
+    edge store): read lengths around k, the minimum length and the
+    kernel's tiles, empty reads, the last read flush with a store whose
+    bytes are no multiple of 8; k = 17, 23, 32 and 1 to 256 seeds; bit-equal
+    to the plain version. 257 seeds raise."""
+    import chip_smoke as cs
+
+    n0 = sk.sketch_reads.launches
+    cases = cs.sketch_edge_parity(dev)
+    assert cases == len(cs.SKETCH_EDGE_KS) * (len(cs.SKETCH_EDGE_SEEDS) + 1)
+    assert sk.sketch_reads.launches == n0 + cases
+    store = [torch.from_numpy(a).to(dev) for a in
+             cs.sketch_edge_store(np.random.default_rng(1), 23)]
+    seeds = torch.ones((257, 2), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="at most 256 seeds"):
+        sk.sketch_reads(*store, seeds, 23, 32)
+
+
 def test_dp_kernel_matches_plain(dev):
     rng = np.random.default_rng(2)
     lens = np.concatenate([[9000], rng.integers(200, 3000, 40)])

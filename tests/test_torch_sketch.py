@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from nanospring_tpu import native as jax_native
 from nanospring_tpu.io import packed as jpk
 from nanospring_tpu.ops import sketch as jsk
@@ -130,3 +131,79 @@ def test_sketch_rejects_bad_k():
     with pytest.raises(ValueError):
         tsk.sketch_reads(torch.zeros(1, dtype=torch.uint8), z, z,
                          torch.ones((2, 2), dtype=torch.int64), 16, 16)
+
+
+@pytest.mark.parametrize("k", cs.SKETCH_EDGE_KS)
+@pytest.mark.parametrize("n", [1, 33, 64, 65, 256])
+def test_sketch_edge_store_matches_jax_and_native(k, n):
+    """The card's edge store (read lengths around k, the minimum length and
+    the kernel's tiles, an empty read in the middle and one last in the
+    store) at seed counts around the kernel's 32-lane layout: the port on
+    the CPU against the JAX package's packed sketch and its host sketch."""
+    packed, offs, lens = cs.sketch_edge_store(
+        np.random.default_rng(2027 + k), k, empty_last=True)
+    assert lens[-1] == 0 and offs[-1] == len(packed) and len(packed) % 8
+    for tile in cs.SKETCH_EDGE_TILES:
+        assert {tile + k - 2, tile + k - 1, tile + k} <= set(lens.tolist())
+    seeds = jsk.make_seeds(n, 77 + n)
+    min_len = max(k, 32)
+    got = _port(packed, offs, lens, seeds, k, min_len)
+    np.testing.assert_array_equal(
+        got, _native(packed, offs, lens, seeds, k, min_len))
+    assert (got[lens < min_len] == jsk.EMPTY_SLOT).all()
+    # the JAX kernel takes padded rows and cuts at k alone
+    width = -(-int(lens.max()) // 4)
+    rows = np.zeros((len(lens), width), np.uint8)
+    for i, (o, m) in enumerate(zip(offs, lens)):
+        nb = -(-int(m) // 4)
+        rows[i, :nb] = packed[o: o + nb]
+    ref = np.asarray(jsk.sketch_batch_packed(rows, lens.astype(np.int32),
+                                             seeds, k=k))
+    np.testing.assert_array_equal(_port(packed, offs, lens, seeds, k, k), ref)
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor where there is no card: a CPU tensor
+    that reports ``cuda`` as its device, so ``sketch_reads`` takes the
+    kernel's route up to the point where it needs the library."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda")
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _on_card_args(n):
+    z = torch.zeros(2, dtype=torch.int64)
+    return (_OnCard(torch.zeros(16, dtype=torch.uint8)), _OnCard(z),
+            _OnCard(z), _OnCard(torch.ones((n, 2), dtype=torch.int64)),
+            23, 32)
+
+
+def test_sketch_kernel_route_rejects_257_seeds(monkeypatch):
+    from nanospring_tpu_torch.ops import _cuda
+
+    monkeypatch.setattr(_cuda, "get_lib", lambda: pytest.fail(
+        "the library was asked for before the seed count was checked"))
+    assert tsk.MAX_SEEDS == 256
+    with pytest.raises(ValueError, match="at most 256 seeds"):
+        tsk.sketch_reads(*_on_card_args(257))
+
+
+def test_broken_sketch_kernel_raises(monkeypatch):
+    """No fallback: when the kernels' library cannot be had, a sketch of
+    tensors on the card raises and the plain version is not taken."""
+    from nanospring_tpu_torch.ops import _cuda
+
+    def broken():
+        raise RuntimeError("sketch kernel build failed")
+
+    monkeypatch.setattr(_cuda, "get_lib", broken)
+    monkeypatch.setattr(tsk, "sketch_reads_plain", lambda *a, **kw: pytest.fail(
+        "the plain version ran for tensors on the card"))
+    n0 = tsk.sketch_reads.launches
+    with pytest.raises(RuntimeError, match="sketch kernel build failed"):
+        tsk.sketch_reads(*_on_card_args(256))
+    assert tsk.sketch_reads.launches == n0
