@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch port (``nanospring_tpu_torch``) on one NVIDIA
 GPU. Run from the root of the repository:
 
-    python3 chip_smoke.py            # the full check, about 7 minutes
+    python3 chip_smoke.py            # the full check, about 10 minutes
     python3 chip_smoke.py --small    # the same phases on a small dataset
+    python3 chip_smoke.py --nccl-ranks 4   # phase 6 (b), (c) alone, as 4
+                                           # NCCL ranks on 4 cards
 
 Phases, in order; any failure exits nonzero and nothing is carried on:
 
@@ -25,7 +27,8 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    band 128 on the first. Then both DP kernels on an edge batch
    (``edge_pairs``: 1 to 131,072 rows, padding, a rejected pair, invalid
    slots, a deletion run that escapes), held against the plain version
-   run on the CPU.
+   run on the CPU, in two worker processes started at the beginning of
+   this phase (their host time overlaps the batches above).
 4. main paths, each on the 60 Mb headline set (bench.py's dataset: 2 Mb
    genome, 12,000 reads, mean length 5,000, seed 1234) on cuda with one
    pipeline worker, decompressed and byte-compared, with the kernel launch
@@ -42,6 +45,26 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    per row of a launch's longest query, at the maximum SM clock; for the
    sketch also the split of one pass as the pipeline makes it (copies to
    the card, kernel, copy back) beside the ``sketch_join`` stage.
+6. scale-out (``nanospring_tpu_torch/parallel``):
+   (a) the sharded join on one NCCL rank in this process, its tensors on
+   the card, whose gathered pairs and counts must equal the single-host
+   ``SketchIndex`` join on the same sketches; and the sketch kernel at the
+   inputs the scale-out path gives it (each half of the rows through
+   ``offsets[lo:hi]``, each FASTQ shard's spill store), bit-equal to its
+   plain version on the same tensors. (b) ``python -m
+   nanospring_tpu_torch.parallel.distributed`` as two ranks on the one card
+   (``backend="gloo"``: NCCL refuses two ranks on one card), each with its
+   own FASTQ shard, the device DP and one pipeline worker; (c)
+   ``compress_mesh`` as two ranks the same way. (b) and (c) run on the
+   headline set, which is one overlap component that one rank grows, and
+   on a set of its shape from two genomes of half the length, where each
+   rank grows one. Both must decode to the input and keep as many pairs as
+   the single-host join finds; (b) prints each rank's phase times,
+   collective bytes, memory evidence and kernel launches. Every rank must
+   have launched the sketch, every rank that grew a component
+   ``banded_dp16``, and on the two-genome set both ranks must grow.
+   With ``--nccl-ranks N``, only (b) and (c) run, as N NCCL ranks on N
+   cards, after the build.
 
 It prints one JSON line listing every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -57,6 +80,8 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 
@@ -256,14 +281,31 @@ def edge_pairs(rng):
             np.array([d for _, _, d in items]))
 
 
-def edge_parity(kernel, plain, pairs, dev, v1: bool) -> tuple:
-    """The kernel on the card against its plain version on the CPU (the
-    plain version's row loop is faster there at this pair count), on the
-    edge batch; returns (outputs on the CPU, max abs error)."""
+def edge_plain(pairs, v1: bool) -> tuple:
+    """The plain version of ``banded_dp32`` (``v1``) or ``banded_dp16`` on
+    the edge batch, on the CPU (its row loop is faster there than on the
+    card at this pair count). Run in a worker process, beside the card's
+    parity batches, so its ~70-120 s of host time overlap them. Returns
+    (outputs, seconds)."""
+    import torch
+
+    from nanospring_tpu_torch.ops import align_tpu as at
+
+    torch.set_num_threads(1)
+    t = dp_tensors(pairs, None, torch.device("cpu"), v1=v1)
+    plain = at.banded_dp32_plain if v1 else at.banded_dp16_plain
+    t0 = time.time()
+    out = tuple(x.clone() for x in plain(*dp_args(t)))
+    return out, time.time() - t0
+
+
+def edge_parity(kernel, ref, pairs, dev, v1: bool) -> tuple:
+    """The kernel on the card against its plain version's outputs ``ref``
+    (``edge_plain``) on the edge batch; returns (outputs on the CPU, max
+    abs error)."""
     t = dp_tensors(pairs, None, dev, v1=v1)
     got = tuple(x.cpu() for x in kernel(*dp_args(t)))
     t_cpu = {k: v.cpu() for k, v in t.items()}
-    ref = plain(*dp_args(t_cpu))
     return got, compare_dp(t_cpu, got, ref)
 
 
@@ -484,11 +526,320 @@ def device_times(prof) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# scale-out: ranks as subprocesses
+# ---------------------------------------------------------------------------
+
+# one rank of compress_mesh: the whole store in every rank
+MESH_RANK = r"""
+import json
+import sys
+import time
+
+from nanospring_tpu_torch.config import CompressConfig
+from nanospring_tpu_torch.io import read_store
+from nanospring_tpu_torch.ops import align_tpu as at
+from nanospring_tpu_torch.ops import sketch as sk
+from nanospring_tpu_torch.parallel import mesh
+from nanospring_tpu_torch.parallel.pipeline import compress_mesh
+
+fq, arc, world, rank, port, backend = sys.argv[1:7]
+group = mesh.initialize(f"127.0.0.1:{port}", int(world), int(rank),
+                        device="cuda", backend=backend)
+try:
+    store = read_store.load_fastq(fq)
+    t0 = time.perf_counter()
+    res = compress_mesh(store, arc, CompressConfig(pipeline_workers=1), group)
+    wall = time.perf_counter() - t0
+finally:
+    mesh.shutdown()
+print("RANK " + json.dumps({
+    "rank": int(rank), "wall_s": wall,
+    "launches": {"sketch": sk.sketch_reads.launches,
+                 "banded_dp16": at.banded_dp16.launches},
+    "ratio": res["ratio"] if res else None,
+    "pairs": res["pairs"] if res else None,
+    "gathered_meta": res["gathered_meta"] if res else None}))
+"""
+
+
+def run_ranks(argvs, timeout: float) -> list[str]:
+    """Run one rank per argv (``parallel.mesh.run_ranks``) from this
+    checkout; fails unless every rank exited 0."""
+    from nanospring_tpu_torch.parallel import mesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ranks = mesh.run_ranks(argvs, env={"PYTHONPATH": here}, timeout=timeout)
+    for i, (rc, o) in enumerate(ranks):
+        if rc != 0:
+            fail(f"rank {i} exited {rc}:\n{o[-4000:]}")
+    return [o for _, o in ranks]
+
+
+def decodes_to(arc: str, reads, work: str) -> bool:
+    from nanospring_tpu_torch import decompressor
+
+    out = os.path.join(work, "scale.reads")
+    decompressor.decompress_file(arc, out, report=False)
+    with open(out, "rb") as f:
+        return f.read().split(b"\n")[:-1] == reads
+
+
+def single_host_pairs(host: np.ndarray, thr: int) -> np.ndarray:
+    """The single-host join of (N, S) uint32 sketches: every ordered pair
+    (q, r, shared slots), q != r, sorted by (q, r)."""
+    from nanospring_tpu_torch.pipeline import candidates
+
+    index = candidates.SketchIndex(host)
+    parts = []
+    for i in range(0, len(host), 4096):
+        wq, wr, wc = index.query(host[i: i + 4096], thr)
+        keep = wq + i != wr
+        parts.append(np.stack([wq[keep] + i, wr[keep], wc[keep]], axis=1))
+    return np.concatenate(parts)
+
+
+def sketch_input_parity(store, fq: str, cfg, work: str, dev,
+                        full) -> list[str]:
+    """The sketch kernel at the inputs the scale-out path gives it, bit for
+    bit against its plain version on the same tensors: each half of the
+    rows through ``offsets[lo:hi]`` of the whole buffer (``compress_mesh``,
+    two ranks) and each FASTQ shard's own spill store
+    (``compress_distributed``, two ranks). The shards' sketches, in rank
+    order, must also equal ``full``, the whole store's."""
+    import torch
+
+    from nanospring_tpu_torch.io import read_store
+    from nanospring_tpu_torch.ops import sketch as sk
+    from nanospring_tpu_torch.pipeline import contigs
+
+    seeds = sk.make_seeds(cfg.num_hashes, cfg.sketch_seed).astype(np.int64)
+
+    def check(st, lo, hi, label):
+        got = contigs.sketch_rows(st, cfg, lo, hi)
+
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        ref = sk.sketch_reads_plain(
+            t(st.packed), t(st.offsets[lo:hi]), t(st.lengths[lo:hi]),
+            t(seeds), cfg.kmer_size,
+            max(cfg.kmer_size, cfg.min_read_len_for_sketch), chunk=1 << 22)
+        if got.shape != (hi - lo, cfg.num_hashes) or not torch.equal(got, ref):
+            fail(f"(a) sketch of {label} differs from the plain version")
+        return got
+
+    N = store.num_reads
+    half = -(-N // 2)
+    done = []
+    for lo, hi in ((0, half), (half, N)):
+        check(store, lo, hi, f"rows [{lo}, {hi})")
+        done.append(f"rows [{lo}, {hi})")
+    shards = []
+    for pid in range(2):
+        wdir = os.path.join(work, f"shard_parity_{pid}")
+        os.makedirs(wdir)
+        st, n = read_store.load_fastq_shard(fq, pid, 2, wdir)
+        shards.append(check(st, 0, n, f"FASTQ shard {pid}"))
+        done.append(f"shard {pid} ({n} reads)")
+    if not torch.equal(torch.cat(shards), full):
+        fail("(a) the FASTQ shards' sketches differ from the whole store's")
+    return done
+
+
+def scale_out(store, reads, fq: str, work: str, dev, spec: dict,
+              world: int = 2, backend: str = "gloo") -> None:
+    """Phase 6: (a) the sharded join on one NCCL rank against the
+    single-host join, and the sketch kernel at the scale-out inputs; (b)
+    the multi-process compress and (c) the mesh compress as ``world``
+    ranks of ``backend``, on the headline set and on a set of two genomes.
+    With ``world`` NCCL ranks (one card each), (a) is left out."""
+    import torch
+
+    from nanospring_tpu_torch.config import CompressConfig
+    from nanospring_tpu_torch.ops import sketch as sk
+    from nanospring_tpu_torch.parallel import mesh
+    from nanospring_tpu_torch.parallel import sharded_join as sj
+    from nanospring_tpu_torch.pipeline import contigs
+
+    cfg = CompressConfig()
+    thr = cfg.overlap_sketch_threshold
+    if backend == "gloo":
+        # (a) --------------------------------------------------------------
+        t0 = time.time()
+        group = mesh.initialize(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                                device="cuda")
+        try:
+            if group.backend != "nccl":
+                fail(f"one-rank group on {group.backend}, not nccl")
+            sk.sketch_reads.launches = 0
+            sketches = contigs.sketch_rows(store, cfg)
+            comm: dict = {}
+            t1 = time.time()
+            q, r, c = sj.gather_pairs(group, *sj.sharded_candidate_pairs(
+                group, sketches, torch.arange(store.num_reads, device=dev),
+                thr, comm=comm))
+            join_s = time.time() - t1
+            launches_a = sk.sketch_reads.launches
+        finally:
+            mesh.shutdown()
+        want = single_host_pairs(sk.as_uint32(sketches), thr)
+        same = (len(q) == len(want) and np.array_equal(q, want[:, 0])
+                and np.array_equal(r, want[:, 1])
+                and np.array_equal(c, want[:, 2]))
+        log(f"[scale] (a) NCCL, one rank: {len(q)} pairs ({len(want)} single "
+            f"host), equal {same}; sketch launches {launches_a}; join "
+            f"{join_s:.2f} s, bytes {json.dumps(comm)}")
+        if not same or len(q) == 0 or launches_a != 1:
+            fail("(a) the one-rank NCCL join differs from the single-host join")
+        done = sketch_input_parity(store, fq, cfg, work, dev, sketches)
+        log(f"[scale] (a) sketch kernel bit-equal to its plain version at "
+            f"the scale-out inputs: {', '.join(done)}; the shards' sketches "
+            f"equal the whole store's; {time.time() - t0:.1f} s")
+        del sketches
+        torch.cuda.empty_cache()
+
+    # (b), (c) on the headline set and on a set of two genomes ----------------
+    from nanospring_tpu_torch.io import read_store
+
+    fq2, reads2 = two_genome_set(work, spec)
+    for label, fq_, reads_, growers in (("headline", fq, reads, 1),
+                                        ("two genomes", fq2, reads2, 2)):
+        bases = sum(len(x) for x in reads_)
+        # each unordered pair that the single-host join finds, once
+        st = store if fq_ == fq else read_store.load_fastq(fq_)
+        host = sk.as_uint32(contigs.sketch_rows(st, cfg))
+        w = single_host_pairs(host, thr)
+        pairs = int((w[:, 0] < w[:, 1]).sum())
+        run = (label, fq_, reads_, bases, work, world, backend, pairs,
+               growers)
+        dist_ranks(*run)
+        mesh_ranks(*run)
+
+
+def two_genome_set(work: str, spec: dict):
+    """The headline set's shape from two genomes of half its length, half
+    its reads each (seeds ``seed`` and ``seed + 1``): two overlap
+    components, so two ranks each own one. The headline set is one
+    component, which one rank grows alone."""
+    from nanospring_tpu_torch.utils import synth
+
+    half = dict(spec, genome_len=spec["genome_len"] // 2,
+                num_reads=spec["num_reads"] // 2)
+    reads = []
+    for i in range(2):
+        part = os.path.join(work, f"genome{i}.fastq")
+        reads += synth.make_dataset(part, **dict(half, seed=spec["seed"] + i))
+        os.unlink(part)
+    fq = os.path.join(work, "two_genomes.fastq")
+    synth.write_fastq(fq, reads, gz=False)
+    return fq, reads
+
+
+def check_ranks(step: str, label: str, launches: list, grew: list,
+                pairs: int, want_pairs: int, growers: int) -> None:
+    """Every rank launched the sketch, every rank that grew a component
+    launched ``banded_dp16``, at least ``growers`` ranks grew, and the
+    ranks kept as many pairs as the single-host join finds."""
+    for rank, (kl, g) in enumerate(zip(launches, grew)):
+        if kl["sketch"] <= 0 or (g and kl["banded_dp16"] <= 0):
+            fail(f"({step}) {label}: rank {rank} never launched a kernel of "
+                 f"its path: {kl} (grew: {g})")
+    if sum(map(bool, grew)) < growers:
+        fail(f"({step}) {label}: {sum(map(bool, grew))} rank(s) grew, "
+             f"expected at least {growers}")
+    if pairs != want_pairs:
+        fail(f"({step}) {label}: {pairs} pairs, the single-host join has "
+             f"{want_pairs}")
+
+
+def dist_ranks(label, fq, reads, bases, work, world, backend, want_pairs,
+               growers) -> None:
+    """(b): ``python -m nanospring_tpu_torch.parallel.distributed`` as
+    ``world`` ranks, with the device DP and one pipeline worker."""
+    import pickle
+
+    from nanospring_tpu_torch.parallel import mesh
+
+    tag = f"{label.replace(' ', '_')}_{backend}{world}"
+    arc = os.path.join(work, f"dist_{tag}.nstpu")
+    wdir = os.path.join(work, f"dist_{tag}")
+    os.makedirs(wdir)
+    port = mesh.free_port()
+    t0 = time.time()
+    outs = run_ranks(
+        [[sys.executable, "-m", "nanospring_tpu_torch.parallel.distributed",
+          fq, arc, wdir, str(world), str(pid), str(port), "--device", "cuda",
+          "--backend", backend, "--aligner", "device", "--workers", "1"]
+         for pid in range(world)], timeout=600)
+    wall = time.time() - t0
+    if "distributed compress ok" not in outs[0]:
+        fail(f"(b) {label}: rank 0 wrote no archive:\n{outs[0][-2000:]}")
+    lossless = decodes_to(arc, reads, work)
+    evs = []
+    for pid in range(world):
+        with open(os.path.join(wdir, f"mem_{pid}.pkl"), "rb") as f:
+            evs.append(pickle.load(f))
+    pairs = sum(ev["local_pairs"] for ev in evs)
+    log(f"[scale] (b) distributed, {label}, {world} {backend} ranks: ratio "
+        f"{bases / os.path.getsize(arc):.4f}, wall {wall:.2f} s (all ranks, "
+        f"start to exit), lossless {lossless}, {pairs} pairs (single host "
+        f"{want_pairs})")
+    for pid, ev in enumerate(evs):
+        mem = {k: ev[k] for k in (
+            "local_shard_bytes", "gathered_bytes", "full_packed_bytes",
+            "local_pairs", "owned_edges", "label_allgather_rounds")}
+        log(f"[scale] (b) {label}, rank {pid}: phase_times "
+            f"{json.dumps(ev['phase_times'])} | comm_bytes "
+            f"{json.dumps(ev['comm_bytes'])} | memory {json.dumps(mem)} | "
+            f"launches {json.dumps(ev['kernel_launches'])}")
+    check_ranks("b", label, [ev["kernel_launches"] for ev in evs],
+                [ev["owned_edges"] > 0 for ev in evs], pairs, want_pairs,
+                growers)
+    if not lossless:
+        fail(f"(b) {label}: the archive does not decode to the input")
+
+
+def mesh_ranks(label, fq, reads, bases, work, world, backend, want_pairs,
+               growers) -> None:
+    """(c): ``compress_mesh`` as ``world`` ranks; the same checks as
+    (b)."""
+    from nanospring_tpu_torch.parallel import mesh
+
+    tag = f"{label.replace(' ', '_')}_{backend}{world}"
+    arc = os.path.join(work, f"mesh_{tag}.nstpu")
+    port = mesh.free_port()
+    t0 = time.time()
+    outs = run_ranks(
+        [[sys.executable, "-c", MESH_RANK, fq, arc, str(world), str(pid),
+          str(port), backend] for pid in range(world)], timeout=600)
+    wall = time.time() - t0
+    ranks = sorted((json.loads(ln[len("RANK "):]) for o in outs
+                    for ln in o.splitlines() if ln.startswith("RANK ")),
+                   key=lambda x: x["rank"])
+    if [x["rank"] for x in ranks] != list(range(world)):
+        fail(f"(c) {label}: {len(ranks)} of {world} ranks reported")
+    lossless = decodes_to(arc, reads, work)
+    log(f"[scale] (c) compress_mesh, {label}, {world} {backend} ranks: "
+        f"ratio {bases / os.path.getsize(arc):.4f}, wall {wall:.2f} s (all "
+        f"ranks, start to exit), lossless {lossless}; per rank "
+        f"{json.dumps(ranks)}")
+    meta = ranks[0]["gathered_meta"]        # (contigs, reads, bases) per rank
+    check_ranks("c", label, [x["launches"] for x in ranks],
+                [meta[x["rank"]][1] > 0 for x in ranks], ranks[0]["pairs"],
+                want_pairs, growers)
+    if not lossless:
+        fail(f"(c) {label}: the archive does not decode to the input")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="small dataset and batches (quick first check)")
+    ap.add_argument("--nccl-ranks", type=int, default=0, metavar="N",
+                    help="run only phase 6's (b) and (c), as N NCCL ranks "
+                    "on N cards")
     args = ap.parse_args()
 
     import torch
@@ -504,11 +855,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.time()
-    with tempfile.TemporaryDirectory(prefix="nstpu_smoke_") as work:
-        return _run(args, dev, work, t_start)
+    # the pool's workers are stopped when this block ends, however it ends
+    with tempfile.TemporaryDirectory(prefix="nstpu_smoke_") as work, \
+            ProcessPoolExecutor(2, mp_context=get_context("spawn")) as pool:
+        return _run(args, dev, work, t_start, pool)
 
 
-def _run(args, dev, work: str, t_start: float) -> int:
+def _run(args, dev, work: str, t_start: float, pool) -> int:
     import torch
 
     from nanospring_tpu_torch import compressor, decompressor, native
@@ -559,7 +912,27 @@ def _run(args, dev, work: str, t_start: float) -> int:
     if not args.small and total != ANCHOR_BASES:
         fail(f"headline set has {total} bases, expected {ANCHOR_BASES}")
 
+    if args.nccl_ranks:
+        # the scale-out path alone, one NCCL rank per card
+        if torch.cuda.device_count() < args.nccl_ranks:
+            fail(f"--nccl-ranks {args.nccl_ranks} needs as many cards, "
+                 f"found {torch.cuda.device_count()}")
+        t0 = time.time()
+        scale_out(read_store.load_fastq(fq), reads, fq, work, dev, spec,
+                  world=args.nccl_ranks, backend="nccl")
+        log(f"[scale] phase {time.time() - t0:.1f} s")
+        log(f"[done] {time.time() - t_start:.1f} s")
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # 3. parity ------------------------------------------------------------
+    # the DP edge batch's plain versions start now on the host, one worker
+    # process each, and are collected after the batches below
+    edge = edge_pairs(np.random.default_rng(2026))
+    edge_refs = {v1: pool.submit(edge_plain, edge, v1) for v1 in (False, True)}
     store = read_store.load_fastq(fq)
     cfg0 = CompressConfig()
     seeds = torch.from_numpy(
@@ -652,12 +1025,11 @@ def _run(args, dev, work: str, t_start: float) -> int:
                 fail("v1 DP costs differ from ns_banded_align(band 128)")
             log("[parity] DP v1 batch: costs equal ns_banded_align(band 128)")
 
-    edge = edge_pairs(np.random.default_rng(2026))
-    for kname, kern, plain, v1 in (
-            ("banded_dp16", at.banded_dp16, at.banded_dp16_plain, False),
-            ("banded_dp32", at.banded_dp32, at.banded_dp32_plain, True)):
+    for kname, kern, v1 in (("banded_dp16", at.banded_dp16, False),
+                            ("banded_dp32", at.banded_dp32, True)):
         t0 = time.time()
-        got, err = edge_parity(kern, plain, edge, dev, v1)
+        ref, plain_s = edge_refs[v1].result()
+        got, err = edge_parity(kern, ref, edge, dev, v1)
         cost, tr = got[0], got[4]
         rows = (torch.arange(tr.shape[1])[None, :]
                 < torch.from_numpy(np.sort(edge[5])[::-1].copy())[:, None])
@@ -665,7 +1037,8 @@ def _run(args, dev, work: str, t_start: float) -> int:
         log(f"[parity] DP edge batch, {kname}: {cost.numel()} pairs, longest "
             f"{int(edge[5].max())} rows, {int((cost >= 0).sum())} accepted, "
             f"{int((cost < 0).sum())} rejected, {esc} escaped: byte-equal "
-            f"({time.time() - t0:.1f} s)")
+            f"(plain version {plain_s:.1f} s in its worker; here "
+            f"{time.time() - t0:.1f} s)")
         if int((cost < 0).sum()) != 1 or (not v1 and esc < 1):
             fail(f"{kname} edge batch: not one rejected pair, or no escape")
         if v1:
@@ -939,6 +1312,11 @@ def _run(args, dev, work: str, t_start: float) -> int:
         "ms": ms32, "plain_ms": plain32_ms, "bound_ms": bms32,
         "bound_by": bby32, "library_ms": None,
     })
+
+    # 6. scale-out ---------------------------------------------------------
+    t0 = time.time()
+    scale_out(store, reads, fq, work, dev, spec)
+    log(f"[scale] phase {time.time() - t0:.1f} s")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -68,17 +68,19 @@ class _Member:
     cost: int
 
 
-def compute_all_sketches(store, cfg: CompressConfig,
-                         report: bool = False) -> np.ndarray:
-    """Sketch every read on ``cfg.device``: (N, n) uint32.
+def sketch_rows(store, cfg: CompressConfig, lo: int = 0,
+                hi: int | None = None):
+    """Sketch reads [lo, hi) of ``store`` on ``cfg.device``: (hi - lo, n)
+    int32 sketch bits on the device.
 
-    One call over the whole packed store: the kernel (or, on ``cpu``, its
-    plain version) reads each read through the store's byte offsets, so
-    there are no padding buckets. Bit-identical to the JAX package's
-    ``sketch_batch_packed`` and to ``native/sketch.cpp``."""
+    One call: the packed buffer goes to the device whole and the kernel
+    (or, on ``cpu``, its plain version) reads each read through
+    ``offsets[lo:hi]``, so there are no padding buckets and nothing is
+    copied per read."""
     import torch
 
     dev = cfg.torch_device()
+    hi = store.num_reads if hi is None else hi
     seeds = sk.make_seeds(cfg.num_hashes, cfg.sketch_seed).astype(np.int64)
     min_len = max(cfg.kmer_size, cfg.min_read_len_for_sketch)
     packed = np.asarray(store.packed)
@@ -86,18 +88,25 @@ def compute_all_sketches(store, cfg: CompressConfig,
         packed = np.array(packed)       # read-only spill map: own a copy
 
     def to_dev(a: np.ndarray):
-        return torch.from_numpy(a).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    return sk.sketch_reads(to_dev(packed), to_dev(store.offsets[lo:hi]),
+                           to_dev(store.lengths[lo:hi]), to_dev(seeds),
+                           cfg.kmer_size, min_len)
+
+
+def compute_all_sketches(store, cfg: CompressConfig,
+                         report: bool = False) -> np.ndarray:
+    """Sketch every read on ``cfg.device``: (N, n) uint32. Bit-identical
+    to the JAX package's ``sketch_batch_packed`` and to
+    ``native/sketch.cpp``."""
     launches0 = sk.sketch_reads.launches
-    out = sk.sketch_reads(to_dev(packed), to_dev(store.offsets),
-                          to_dev(store.lengths), to_dev(seeds),
-                          cfg.kmer_size, min_len)
-    res = sk.as_uint32(out)
+    res = sk.as_uint32(sketch_rows(store, cfg))
     _merge_timings(PIPE_STAGES, {
         "sketch_kernel_launches": sk.sketch_reads.launches - launches0})
     if report:
-        print(f"[nstpu] sketched {store.num_reads} reads on {dev} "
-              f"(k={cfg.kmer_size})")
+        print(f"[nstpu] sketched {store.num_reads} reads on "
+              f"{cfg.torch_device()} (k={cfg.kmer_size})")
     return res
 
 

@@ -190,3 +190,37 @@ def test_compress_on_cuda_lossless(dev, tmp_path):
     info = res["dp_info"]
     assert info["sketch_kernel_launches"] >= 1
     assert info["dp_kernel_launches"] > 0 and info["dp_kernel_pairs"] > 0
+
+
+def test_sharded_join_nccl_one_rank(dev, tmp_path):
+    """The sharded join on one NCCL rank, its tensors on the card, against
+    the single-host join on the same sketches."""
+    from nanospring_tpu_torch.io import read_store
+    from nanospring_tpu_torch.parallel import mesh
+    from nanospring_tpu_torch.parallel import sharded_join as sj
+    from nanospring_tpu_torch.pipeline import candidates
+    from nanospring_tpu_torch.pipeline import contigs
+
+    fq = str(tmp_path / "in.fastq")
+    synth.make_dataset(fq, genome_len=100_000, num_reads=300, mean_len=3_000,
+                       seed=6, realistic=True)
+    store = read_store.load_fastq(fq)
+    cfg = CompressConfig()
+    group = mesh.initialize(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                            device="cuda")
+    try:
+        assert group.backend == "nccl" and group.device.type == "cuda"
+        sketches = contigs.sketch_rows(store, cfg)
+        assert sketches.is_cuda
+        rids = torch.arange(store.num_reads, device=sketches.device)
+        q, r, c = sj.gather_pairs(group, *sj.sharded_candidate_pairs(
+            group, sketches, rids, cfg.overlap_sketch_threshold))
+    finally:
+        mesh.shutdown()
+    host = sk.as_uint32(sketches)
+    wq, wr, wc = candidates.SketchIndex(host).query(
+        host, cfg.overlap_sketch_threshold)
+    keep = wq != wr
+    assert len(q) > 0
+    assert np.array_equal(q, wq[keep]) and np.array_equal(r, wr[keep])
+    assert np.array_equal(c, wc[keep])
