@@ -6,6 +6,8 @@ GPU. Run from the root of the repository:
     python3 chip_smoke.py --small    # the same phases on a small dataset
     python3 chip_smoke.py --nccl-ranks 4   # phase 6 (b), (c) alone, as 4
                                            # NCCL ranks on 4 cards
+    python3 chip_smoke.py --big      # after the build, one set over 2 GiB
+                                     # (the low-memory store), ~20 minutes
 
 Phases, in order; any failure exits nonzero and nothing is carried on:
 
@@ -39,6 +41,13 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    batches up to 8,192 rows to the v1 DP and longer ones to the host DP,
    as the reference does; its kernel batches are then replayed on the
    exact C++ DP (band 128) to compare each pair's verdict and cost.
+   (d) ``aligner="auto"``, the first probe-mode run in this process, so
+   the engine really probes: a warm-up and a probe batch through the hook
+   on the card, timed against its own DP, and the faster keeps the run.
+   It must run at least those 2 batches on the card and decode to the
+   input; with a ``native`` verdict it must write phase 4's native
+   archive byte for byte. (``--small``'s set is under the probe's
+   2e7-base gate, so there it only checks the archive.)
 5. times: each kernel at the main paths' shapes with CUDA events (warm-up,
    then many launches), its plain version's time and its bound; for the DP
    kernels also the profiler's time per main-path launch and the cycles
@@ -65,6 +74,26 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    ``banded_dp16``, and on the two-genome set both ranks must grow.
    With ``--nccl-ranks N``, only (b) and (c) run, as N NCCL ranks on N
    cards, after the build.
+7. workers on one card: the two-genome set with the device DP at
+   ``pipeline_workers`` 1, 2 and 0 (the default, min(threads, cores) // 2
+   processes), each with its own CUDA context and hook. Each run must
+   decode to the input, and with 2 and 0 workers every grow process must
+   have launched ``banded_dp16``. Prints each run's wall, the largest
+   ``max_memory_allocated`` of a grow process and the card's used memory
+   (nvidia-smi, sampled during the run).
+
+With ``--big``, after the build: one synthetic set over 2 GiB
+(``bench_scale.py``'s recipe: mean length 5,000, genome = bases / 24,
+seed 99, n-frac 0.0005; 1.2 Gbase), so that ``compress_file`` switches
+the low-memory store on by itself. First the spill map's copy to the card
+(32 MB chunks) and its sketch, every row, are held against a whole copy
+and the plain version. Then it compresses with ``aligner="device"`` and
+``"auto"`` and decompresses each archive in memory and with ``-m 1``,
+each in a process of its own (peak RSS from ``ru_maxrss``), and compares
+by streamed digest. The device run keeps each grow process's first and
+largest hook batch (``NSTPU_DP_RECORD``, at the hook's ``M_CAP``), and
+32 pairs of each, the longest among them, are replayed on the plain
+``banded_dp16`` on the host.
 
 It prints one JSON line listing every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -647,12 +676,13 @@ def sketch_input_parity(store, fq: str, cfg, work: str, dev,
 
 
 def scale_out(store, reads, fq: str, work: str, dev, spec: dict,
-              world: int = 2, backend: str = "gloo") -> None:
+              world: int = 2, backend: str = "gloo"):
     """Phase 6: (a) the sharded join on one NCCL rank against the
     single-host join, and the sketch kernel at the scale-out inputs; (b)
     the multi-process compress and (c) the mesh compress as ``world``
     ranks of ``backend``, on the headline set and on a set of two genomes.
-    With ``world`` NCCL ranks (one card each), (a) is left out."""
+    With ``world`` NCCL ranks (one card each), (a) is left out. Returns
+    the two-genome set (its FASTQ path and reads)."""
     import torch
 
     from nanospring_tpu_torch.config import CompressConfig
@@ -714,6 +744,7 @@ def scale_out(store, reads, fq: str, work: str, dev, spec: dict,
                growers)
         dist_ranks(*run)
         mesh_ranks(*run)
+    return fq2, reads2
 
 
 def two_genome_set(work: str, spec: dict):
@@ -832,6 +863,400 @@ def mesh_ranks(label, fq, reads, bases, work, world, backend, want_pairs,
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (d), phase 7 and --big: the default aligner's probe, grow workers
+# on one card, the low-memory store
+# ---------------------------------------------------------------------------
+
+class CardMemory:
+    """The card's used memory (MiB, ``nvidia-smi``) before a block and its
+    largest sample while the block runs (every 0.2 s, from a thread)."""
+
+    def __init__(self):
+        self.before = self.peak = 0
+        self._stop = threading.Event()
+
+    @staticmethod
+    def used_mib() -> int:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+        return int(out.split()[0])
+
+    def _poll(self):
+        while not self._stop.wait(0.2):
+            self.peak = max(self.peak, self.used_mib())
+
+    def __enter__(self):
+        self.before = self.peak = self.used_mib()
+        self._th = threading.Thread(target=self._poll, daemon=True)
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+
+
+def auto_phase(fq: str, reads, arc_native: str, work: str,
+               small: bool) -> None:
+    """Phase 4 (d): ``aligner="auto"`` on the headline set, the first
+    probe-mode run in this process (the engine caches its verdict per
+    process and kernel shape)."""
+    from nanospring_tpu_torch import compressor
+    from nanospring_tpu_torch.config import CompressConfig
+    from nanospring_tpu_torch.ops import align_tpu as at
+
+    arc = os.path.join(work, "headline_auto.nstpu")
+    at.banded_dp16.launches = 0
+    res = compressor.compress_file(
+        fq, arc, CompressConfig(aligner="auto", pipeline_workers=1),
+        report=False)
+    launches = at.banded_dp16.launches
+    dpi = res["dp_info"]
+    lossless = decodes_to(arc, reads, work)
+    with open(arc, "rb") as f, open(arc_native, "rb") as g:
+        same = f.read() == g.read()
+    log(f"[main] auto: verdict {dpi['dp_backend']}, probe batch on the card "
+        f"{dpi['dp_probe_device_s']:.4f} s, on the host "
+        f"{dpi['dp_probe_native_s']:.4f} s; {dpi['dp_hook_batches']} hook "
+        f"batches, {launches} banded_dp16 launches; ratio "
+        f"{res['ratio']:.4f}, compress {res['wall_s']:.2f} s, lossless "
+        f"{lossless}, byte-equal to the native archive {same}")
+    log(f"[main] auto stages {json.dumps(res['stage_s'])} | pipe split "
+        f"{json.dumps(res['pipe_split'])}")
+    # the small set is under the probe's 2e7-base gate
+    if not small and (dpi["dp_hook_batches"] < 2 or launches < 2):
+        fail(f"auto: {dpi['dp_hook_batches']} hook batches and {launches} "
+             "launches, not the warm-up and the probe on the card")
+    if not lossless:
+        fail("auto archive does not decode to the input")
+    if dpi["dp_backend"] == "native" and not same:
+        fail("auto chose the native DP but its archive differs from the "
+             "native archive")
+
+
+def workers_phase(fq: str, reads, work: str) -> None:
+    """Phase 7: the two-genome set with the device DP at 1, 2 and the
+    default number of grow workers, every one of them on the one card."""
+    import torch
+
+    from nanospring_tpu_torch import compressor
+    from nanospring_tpu_torch.config import CompressConfig
+
+    for w in (1, 2, 0):
+        cfg = CompressConfig(aligner="device", pipeline_workers=w)
+        arc = os.path.join(work, f"workers_{w}.nstpu")
+        torch.cuda.reset_peak_memory_stats()
+        with CardMemory() as mem:
+            res = compressor.compress_file(fq, arc, cfg, report=False)
+        dpi = res["dp_info"]
+        lossless = decodes_to(arc, reads, work)
+        procs = dpi["grow_workers"]
+        where = "this process" if procs == 1 else "processes"
+        log(f"[workers] pipeline_workers={w} (resolves to "
+            f"{cfg.resolved_workers()}): {procs} grow {where}, "
+            f"{dpi['dp_workers_launched']} launched banded_dp16 "
+            f"({dpi['dp_kernel_launches']} launches); compress "
+            f"{res['wall_s']:.2f} s, ratio {res['ratio']:.4f}, lossless "
+            f"{lossless}; largest max_memory_allocated of a grow process "
+            f"{dpi['dp_worker_peak_bytes']} B; card memory used "
+            f"{mem.before} MiB before, {mem.peak} MiB at most during")
+        log(f"[workers] pipeline_workers={w} pipe split "
+            f"{json.dumps(res['pipe_split'])}")
+        if not lossless:
+            fail(f"pipeline_workers={w}: the archive does not decode to the "
+                 "input")
+        if dpi["dp_workers_launched"] != procs or procs < (1 if w == 1
+                                                             else 2):
+            fail(f"pipeline_workers={w}: {dpi['dp_workers_launched']} of "
+                 f"{procs} grow processes launched banded_dp16")
+
+
+BIG_BASES = 1.2e9
+BIG_MEAN_LEN = 5_000
+
+# one compress of --big's set in a process of its own: the result, the
+# process's peak RSS and its grow workers' (ru_maxrss, KiB on Linux); its
+# report prints each stage's wall and the RSS at its end to stderr
+BIG_COMPRESS = r"""
+import json, resource, sys, time
+import torch
+from nanospring_tpu_torch import compressor
+from nanospring_tpu_torch.config import CompressConfig
+from nanospring_tpu_torch.utils.observe import rss_gb
+
+fq, arc, aligner, work = sys.argv[1:5]
+rss_imports = rss_gb()      # torch's libraries, before any work
+t0 = time.perf_counter()
+res = compressor.compress_file(fq, arc, CompressConfig(aligner=aligner,
+                                                       work_dir=work))
+wall = time.perf_counter() - t0
+print("BIG " + json.dumps({
+    "wall_s": wall, "ratio": res["ratio"], "low_mem": res["low_mem"],
+    "num_reads": res["num_reads"], "total_bases": res["total_bases"],
+    "stage_s": res["stage_s"], "dp_info": res["dp_info"],
+    "pipe_split": res["pipe_split"], "rss_imports_gb": rss_imports,
+    "rss_kib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+    "workers_rss_kib":
+        resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss}))
+"""
+
+BIG_DECOMPRESS = r"""
+import json, resource, sys, time
+from nanospring_tpu_torch.config import DecompressConfig
+from nanospring_tpu_torch.decompressor import decompress_file
+
+arc, out, gb, work = sys.argv[1:5]
+t0 = time.perf_counter()
+res = decompress_file(arc, out, DecompressConfig(memory_gb=float(gb),
+                                                 work_dir=work),
+                      report=False)
+print("BIG " + json.dumps({
+    "wall_s": time.perf_counter() - t0, "stage_s": res["stage_s"],
+    "rss_kib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}))
+"""
+
+
+def run_big_child(argv: list, label: str, env: dict | None = None) -> dict:
+    """Run one of --big's child scripts (``env`` added to this process's
+    environment); its ``BIG`` line, with the ``[nstpu]`` stage lines of
+    its stderr under ``stage_lines``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c"] + argv, capture_output=True,
+                       text=True,
+                       env=dict(os.environ, PYTHONPATH=here, **(env or {})))
+    if r.returncode != 0:
+        fail(f"{label} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-4000:]}")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("BIG ")]
+    out = json.loads(line[-1][4:])
+    out["stage_lines"] = [ln for ln in r.stderr.splitlines()
+                          if ln.startswith("[nstpu]") and "rss" in ln]
+    return out
+
+
+def seq_digest(path: str, fastq: bool) -> tuple:
+    """(sha256, lines, longest line) of a FASTQ's sequence lines or of a
+    reads file, streamed."""
+    import hashlib
+
+    h = hashlib.sha256()
+    n = longest = 0
+    with open(path, "rb") as f:
+        for i, line in enumerate(f):
+            if not fastq or i % 4 == 1:
+                h.update(line)
+                n += 1
+                longest = max(longest, len(line.rstrip(b"\n")))
+    return h.hexdigest(), n, longest
+
+
+def big_sketch_parity(fq: str, work: str, dev) -> str:
+    """--big's sketch input: the set's spill-backed store goes to the card
+    in ``contigs.STAGE_BYTES`` chunks through the pinned staging buffer
+    (``packed_on_device``). That buffer must equal a whole copy of the
+    spill map, and ``sketch_rows`` on it, every row, must equal the plain
+    version on the whole copy bit for bit."""
+    import torch
+
+    from nanospring_tpu_torch.config import CompressConfig
+    from nanospring_tpu_torch.io import read_store
+    from nanospring_tpu_torch.ops import sketch as sk
+    from nanospring_tpu_torch.pipeline import contigs
+
+    cfg = CompressConfig(device=dev.type)
+    store = read_store.load_fastq(fq, low_mem=True, work_dir=work)
+    try:
+        packed = np.asarray(store.packed)
+        if packed.flags["WRITEABLE"]:
+            fail("--big's store is not a read-only spill map")
+        chunks = -(-len(packed) // contigs.STAGE_BYTES)
+        whole = torch.from_numpy(np.array(packed)).to(dev)
+        if not torch.equal(contigs.packed_on_device(packed, dev), whole):
+            fail(f"the spill map's {chunks} chunks on the card differ from "
+                 "a whole copy")
+        t0 = time.time()
+        got = contigs.sketch_rows(store, cfg)
+        torch.cuda.synchronize()
+        t1 = time.time()
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        seeds = sk.make_seeds(cfg.num_hashes, cfg.sketch_seed)
+        ref = sk.sketch_reads_plain(
+            whole, t(store.offsets), t(store.lengths),
+            t(seeds.astype(np.int64)), cfg.kmer_size,
+            max(cfg.kmer_size, cfg.min_read_len_for_sketch), chunk=1 << 22)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            bad = (got != ref).any(dim=1).nonzero()[:5, 0].tolist()
+            fail(f"--big's sketch differs from the plain version at reads "
+                 f"{bad}")
+        return (f"{store.num_reads} reads, {len(packed)} packed bytes in "
+                f"{chunks} chunks of {contigs.STAGE_BYTES}: bit-equal "
+                f"(sketch_rows {t1 - t0:.2f} s, plain "
+                f"{time.time() - t1:.2f} s)")
+    finally:
+        store.cleanup()
+
+
+DP_REPLAY_PAIRS = 32
+
+
+def replay_dp_batch(path: str) -> dict:
+    """One hook batch kept by ``NSTPU_DP_RECORD`` (inputs, and outputs as
+    the hook copied them back from the card) replayed on
+    ``banded_dp16_plain`` on the CPU. Pairs are independent, so up to
+    ``DP_REPLAY_PAIRS`` of them, the longest query among them, are
+    replayed; their cost, tstart, tend and trace rows must equal the
+    batch's. Runs in a worker process; returns what it compared and the
+    first difference, if any."""
+    import torch
+
+    from nanospring_tpu_torch.ops import align_tpu as at
+
+    torch.set_num_threads(1)
+    b = np.load(path)
+    q_len = b["q_len"]
+    P = len(q_len)
+    pick = np.unique(np.concatenate([
+        np.linspace(0, P - 1, min(P, DP_REPLAY_PAIRS - 1)).astype(np.int64),
+        [int(np.argmax(q_len))]]))
+    m = int(q_len[pick].max())
+    t0 = time.time()
+
+    def t(k, cols=None):
+        a = b[k][pick] if cols is None else b[k][pick, :cols]
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    got = at.banded_dp16_plain(
+        t("d0"), t("q_len"), t("t_len"), t("max_cost"), t("tpad", m + 128),
+        t("queries", m))
+    bad = None
+    for name, i in (("cost", 0), ("tstart", 2), ("tend", 3)):
+        want = b[{"cost": "cost", "tstart": "ts", "tend": "te"}[name]][pick]
+        diff = np.flatnonzero(got[i].numpy() != want)
+        if len(diff) and bad is None:
+            bad = f"{name} at pair {int(pick[diff[0]])}"
+    rows = np.arange(m)[None, :] < q_len[pick][:, None]
+    diff = (got[4].numpy() != b["trace"][pick, :m]) & rows
+    if diff.any() and bad is None:
+        p = int(np.flatnonzero(diff.any(axis=1))[0])
+        bad = (f"trace at pair {int(pick[p])}, row "
+               f"{int(np.flatnonzero(diff[p])[0])}")
+    return {"batch": os.path.basename(path), "m_cap": int(b["m_cap"]),
+            "pairs": P, "rows": int(b["tpad"].shape[1]) - 128,
+            "replayed": len(pick), "longest": m,
+            "accepted": int((b["cost"][pick] >= 0).sum()),
+            "plain_s": round(time.time() - t0, 1), "differs": bad}
+
+
+def big_run(work: str, dev, pool) -> None:
+    """``--big``: one set over 2 GiB through the low-memory store."""
+    num_reads = int(BIG_BASES / BIG_MEAN_LEN)
+    genome_len = int(BIG_BASES / 24)
+    fq = os.path.join(work, "big.fastq")
+    t0 = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # made in a process of its own, which alone holds the whole read list
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from nanospring_tpu_torch.utils import synth; "
+         "synth.make_dataset(sys.argv[1], genome_len=int(sys.argv[2]), "
+         "num_reads=int(sys.argv[3]), mean_len=int(sys.argv[4]), seed=99, "
+         "p_n_base=0.0005, realistic=True)",
+         fq, str(genome_len), str(num_reads), str(BIG_MEAN_LEN)],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=here))
+    if r.returncode != 0:
+        fail(f"synth exited {r.returncode}: {r.stderr[-2000:]}")
+    in_bytes = os.path.getsize(fq)
+    want = seq_digest(fq, fastq=True)
+    log(f"[big] {num_reads} reads (genome {genome_len}), longest read "
+        f"{want[2]}, {in_bytes} input bytes, made and digested in "
+        f"{time.time() - t0:.1f} s")
+    if in_bytes <= 2 << 30:
+        fail(f"the --big input has {in_bytes} bytes, not over 2 GiB")
+    t0 = time.time()
+    log(f"[big] sketch of the spill map vs the plain version: "
+        f"{big_sketch_parity(fq, work, dev)} ({time.time() - t0:.1f} s)")
+    record = os.path.join(work, "dp_record")
+    os.makedirs(record)
+    replays = []
+    for aligner in ("device", "auto"):
+        arc = os.path.join(work, f"big_{aligner}.nstpu")
+        # the device run keeps its grow processes' first hook batches
+        c = run_big_child([BIG_COMPRESS, fq, arc, aligner, work],
+                          f"compress ({aligner})",
+                          env={"NSTPU_DP_RECORD": record}
+                          if aligner == "device" else None)
+        dpi = c["dp_info"]
+        rss = c["rss_kib"] * 1024
+        log(f"[big] {aligner}: ratio {c['ratio']:.4f}, compress "
+            f"{c['wall_s']:.2f} s, low_mem {c['low_mem']}, "
+            f"{c['total_bases']} bases; peak RSS {rss} B "
+            f"({rss / in_bytes:.4f} of the input), its child processes' "
+            f"largest {c['workers_rss_kib'] * 1024} B; sketch launches "
+            f"{dpi['sketch_kernel_launches']}, banded_dp16 launches "
+            f"{dpi['dp_kernel_launches']} in {dpi['grow_workers']} grow "
+            f"processes ({dpi['dp_workers_launched']} launched), hook "
+            f"M_CAP {dpi['dp_hook_m_cap']}, card memory of a grow process "
+            f"{dpi['dp_worker_peak_bytes']} B")
+        if aligner == "auto":
+            log(f"[big] auto: verdict {dpi['dp_backend']}, probe batch on "
+                f"the card {dpi['dp_probe_device_s']:.4f} s, on the host "
+                f"{dpi['dp_probe_native_s']:.4f} s (summed over "
+                f"{dpi['dp_probe_device_workers']} device and "
+                f"{dpi['dp_probe_native_workers']} native verdicts)")
+        log(f"[big] {aligner} stages {json.dumps(c['stage_s'])} | pipe split "
+            f"{json.dumps(c['pipe_split'])}")
+        log(f"[big] {aligner}, RSS after the imports "
+            f"{c['rss_imports_gb']:.3f} GB; at each stage's end: "
+            f"{' | '.join(c['stage_lines'])}")
+        if not c["low_mem"]:
+            fail("the low-memory store did not switch on by itself")
+        if dpi["sketch_kernel_launches"] != 1:
+            fail(f"{dpi['sketch_kernel_launches']} sketch launches, not 1")
+        if aligner == "device":
+            if dpi["dp_kernel_launches"] <= 0:
+                fail("no banded_dp16 launch on the device route")
+            # each grow process's first and largest hook batches,
+            # replayed on the plain version beside the next runs, the
+            # largest first
+            kept = sorted(os.listdir(record), key=lambda f: "first" in f)
+            pids = {f.split("_")[1] for f in kept}
+            if len(pids) != dpi["dp_workers_launched"]:
+                fail(f"hook batches kept by {len(pids)} grow processes, "
+                     f"{dpi['dp_workers_launched']} launched banded_dp16")
+            m_cap = dpi["dp_hook_m_cap"]
+            replays = [pool.submit(replay_dp_batch, os.path.join(record, f))
+                       for f in kept]
+        for gb in (5.0, 1.0):
+            out = os.path.join(work, "big.reads")
+            d = run_big_child([BIG_DECOMPRESS, arc, out, str(gb), work],
+                              f"decompress ({aligner}, -m {gb:g})")
+            got = seq_digest(out, fastq=False)
+            os.unlink(out)
+            lossless = got == want
+            drss = d["rss_kib"] * 1024
+            log(f"[big] {aligner}, decompress -m {gb:g}: {d['wall_s']:.2f} "
+                f"s, peak RSS {drss} B ({drss / in_bytes:.4f} of the "
+                f"input), lossless {lossless}; stages "
+                f"{json.dumps(d['stage_s'])}")
+            if not lossless:
+                fail(f"{aligner}: -m {gb:g} does not decode to the input")
+        os.unlink(arc)
+    for fut in replays:
+        r = fut.result()
+        log(f"[big] device run's hook batch on banded_dp16_plain: "
+            f"{json.dumps(r)}")
+        if r["differs"] or r["m_cap"] != m_cap:
+            fail(f"hook batch {r['batch']}: {r['differs']} (M_CAP "
+                 f"{r['m_cap']})")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -840,6 +1265,9 @@ def main() -> int:
     ap.add_argument("--nccl-ranks", type=int, default=0, metavar="N",
                     help="run only phase 6's (b) and (c), as N NCCL ranks "
                     "on N cards")
+    ap.add_argument("--big", action="store_true",
+                    help="after the build, only a set over 2 GiB (the "
+                    "low-memory store), device and auto")
     args = ap.parse_args()
 
     import torch
@@ -900,6 +1328,17 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         fail(f"build: {errs[0]!r}")
     _cuda.get_lib()
     log(f"[build] native + CUDA kernels in {time.time() - t0:.1f} s")
+
+    if args.big:
+        t0 = time.time()
+        big_run(work, dev, pool)
+        log(f"[big] {time.time() - t0:.1f} s")
+        log(f"[done] {time.time() - t_start:.1f} s")
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # dataset --------------------------------------------------------------
     fq = os.path.join(work, "headline.fastq")
@@ -1055,7 +1494,8 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         sk.sketch_reads.launches = 0
         at.banded_dp16.launches = 0
         res = compressor.compress_file(
-            fq, arc, CompressConfig(pipeline_workers=1), report=False)
+            fq, arc, CompressConfig(aligner="device", pipeline_workers=1),
+            report=False)
         launches = {"sketch": sk.sketch_reads.launches,
                     "banded_dp16": at.banded_dp16.launches}
     prof_ms = device_times(prof)
@@ -1104,6 +1544,7 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
     if not args.small and round(res_n["ratio"], 2) != ANCHOR_RATIO:
         fail(f"native-DP ratio {res_n['ratio']:.4f} is not the anchor "
              f"{ANCHOR_RATIO}")
+    auto_phase(fq, reads, arc_n, work, args.small)
 
     arc_w = os.path.join(work, "headline_wavefront.nstpu")
     # keep each wavefront batch and its costs, to replay them on the host
@@ -1315,8 +1756,14 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
 
     # 6. scale-out ---------------------------------------------------------
     t0 = time.time()
-    scale_out(store, reads, fq, work, dev, spec)
+    fq2, reads2 = scale_out(store, reads, fq, work, dev, spec)
     log(f"[scale] phase {time.time() - t0:.1f} s")
+
+    # 7. workers on one card -------------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    workers_phase(fq2, reads2, work)
+    log(f"[workers] phase {time.time() - t0:.1f} s")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

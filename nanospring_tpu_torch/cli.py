@@ -3,7 +3,8 @@
     nstpu -c -i reads.fastq[.gz] -o out.nstpu [-t N] [-k K] [-n N] ...
     nstpu -d -i out.nstpu -o reads.txt [-m GB]
 
-Also exposes ``nstpu synth`` (synthetic dataset generation).
+Also exposes ``nstpu synth`` (synthetic dataset generation) and ``nstpu
+lone-stats -i ARCHIVE`` (how many lone reads would align to the contigs).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import argparse
 import signal
 import sys
 
-from .config import CompressConfig, DecompressConfig
+from .config import ALIGNERS, CompressConfig, DecompressConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,11 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adaptive first-try band half-width")
     p.add_argument("--polish-rounds", type=int, default=1,
                    help="consensus column-voting rounds (0 disables)")
-    p.add_argument("--aligner", choices=["device", "native", "python"],
-                   default="device",
+    p.add_argument("--aligner", choices=list(ALIGNERS), default="device",
                    help="DP backend for contig growth: the device kernel "
-                        "through the engine's hook, the engine's own DP, or "
-                        "the Python wavefront with the v1 device kernel")
+                        "through the engine's hook, the engine's own DP, "
+                        "the Python wavefront with the v1 device kernel, or "
+                        "auto (on cuda, above NSTPU_PROBE_MIN_BASES bases: "
+                        "time one batch on both and keep the faster)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the sketch and the device DP run (cpu runs "
                         "the kernels' plain PyTorch versions)")
@@ -78,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--realistic", action="store_true",
                     help="hardened model: repeats, homopolymer-biased "
                          "indels, lognormal lengths (the bench headline)")
+
+    lp = sub.add_parser("lone-stats", help="analyze lone reads of an archive")
+    lp.add_argument("-i", "--input", required=True)
     return p
 
 
@@ -115,6 +120,12 @@ def _dispatch(argv: list[str] | None) -> int:
             realistic=args.realistic,
         )
         print(f"wrote {args.output}")
+        return 0
+
+    if args.cmd == "lone-stats":
+        from .pipeline import lone_stats
+
+        lone_stats.report(args.input)
         return 0
 
     if args.compress:

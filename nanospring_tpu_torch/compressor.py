@@ -56,7 +56,9 @@ def compress_file(
         )
 
     try:
-        return _compress_loaded(store, out_path, cfg, timer, stats, report)
+        res = _compress_loaded(store, out_path, cfg, timer, stats, report)
+        res["low_mem"] = bool(low_mem)
+        return res
     finally:
         store.cleanup()  # low-mem spill file (no-op in memory mode)
 

@@ -6,8 +6,8 @@ edge-thr=4e6, t=20, decompression-memory=5 GB) so ratio comparisons are
 apples-to-apples, but the knobs control a different, batch-first pipeline.
 
 This is the PyTorch port's copy of ``nanospring_tpu/config.py``. It adds
-``device`` (where the sketch and the batch DP run) and narrows ``aligner``
-to the three backends this package has; ``from_reference`` carries a
+``device`` (where the sketch and the batch DP run) and names ``aligner``'s
+four backends after this package's devices; ``from_reference`` carries a
 JAX-package config across field by field.
 """
 
@@ -18,10 +18,10 @@ import os
 import tempfile
 
 
-ALIGNERS = ("device", "native", "python")
+ALIGNERS = ("device", "native", "python", "auto")
 DEVICES = ("cuda", "cpu")
 # the JAX package's aligner names -> this package's
-_REFERENCE_ALIGNER = {"tpu": "device", "auto": "native"}
+_REFERENCE_ALIGNER = {"tpu": "device"}
 
 
 @dataclasses.dataclass
@@ -93,7 +93,13 @@ class CompressConfig:
                                        # (grow loop in Python) with its
                                        # batch DP in csrc/banded_dp32.cu
                                        # (plain torch version on cpu),
-                                       # band fixed at [-128, 127]
+                                       # band fixed at [-128, 127];
+                                       # "auto" = the engine times one
+                                       # batch on the device DP and on its
+                                       # own and keeps the faster (on cuda,
+                                       # above NSTPU_PROBE_MIN_BASES bases
+                                       # or with NSTPU_TPU_PROBE=1; else
+                                       # the engine's own DP)
     device: str = "cuda"               # "cuda" | "cpu": where the sketch
                                        # and the device DP run; "cuda"
                                        # without a card raises
@@ -147,10 +153,10 @@ class CompressConfig:
 
         Every shared field is carried as is; the reference's padding-bucket
         and window-step knobs have no counterpart here and are dropped. The
-        reference's chip aligner ("tpu") maps to "device". Its default
-        "auto" runs the engine's own DP unless a TPU is attached and its
-        probe is enabled, so it maps to "native", the DP it runs by default;
-        the timed probe itself is not ported. "python" maps to "python",
+        reference's chip aligner ("tpu") maps to "device"; its default
+        "auto" (the engine's timed probe between the chip's DP and its own)
+        maps to "auto", which probes the device DP the same way where the
+        device is a card. "python" maps to "python",
         the wavefront with its batch DP (``banded_dp32``) on ``device``. Its
         counterpart in the JAX package is the wavefront's route through the
         v1 kernel (``aligner="tpu"`` with no C++ engine). The JAX

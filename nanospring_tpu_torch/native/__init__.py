@@ -12,6 +12,7 @@ in one process. It is rebuilt when any source is newer.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -43,20 +44,26 @@ def build(verbose: bool = False) -> str:
     asan = os.environ.get("NSTPU_ASAN") == "1"
     so_path = os.path.join(BUILD_DIR,
                            "libnstpu_torch_asan.so" if asan else _SO_NAME)
-    if _needs_build(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # build under a per-process name and rename: concurrent first uses
-        # (test workers, grow workers) never load a half-written library
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [
-            "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            "-fopenmp", "-o", tmp,
-        ] + (["-fsanitize=address", "-fno-omit-frame-pointer", "-g"]
-             if asan else []) + [os.path.join(_DIR, s) for s in _SOURCES]
-        if verbose:
-            print("[nstpu] building native lib:", " ".join(cmd))
-        subprocess.run(cmd, check=True, capture_output=not verbose)
-        os.replace(tmp, so_path)
+    if not _needs_build(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # concurrent first uses (test workers, grow workers): one process
+    # builds, the others wait for its lock and then find the library built
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _needs_build(so_path):
+            # build under a per-process name and rename: a process that
+            # loads without the lock never sees a half-written library
+            tmp = f"{so_path}.{os.getpid()}.tmp"
+            cmd = [
+                "g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                "-fPIC", "-fopenmp", "-o", tmp,
+            ] + (["-fsanitize=address", "-fno-omit-frame-pointer", "-g"]
+                 if asan else []) + [os.path.join(_DIR, s) for s in _SOURCES]
+            if verbose:
+                print("[nstpu] building native lib:", " ".join(cmd))
+            subprocess.run(cmd, check=True, capture_output=not verbose)
+            os.replace(tmp, so_path)
     return so_path
 
 

@@ -95,6 +95,11 @@ int32_t ns_banded_align(
         int64_t klo = jbase < 0 ? -jbase : 0;
         int64_t khi = n - jbase;
         if (khi > width - 1) khi = width - 1;
+        // a row with no valid slot (the diagonal lies more than a band
+        // before the target's start or past its end) writes only its own
+        // width slots: klo <= width, khi >= -1
+        if (klo > width) klo = width;
+        if (khi < -1) khi = -1;
         for (int64_t k = 0; k < klo; ++k) { cur[k] = INF; dir_row[k] = 3; }
         for (int64_t k = khi + 1; k < width; ++k) { cur[k] = INF; dir_row[k] = 3; }
         // vector pass (branch-free, auto-vectorizes): diag vs up.
@@ -114,7 +119,7 @@ int32_t ns_banded_align(
                 dv[k] = (uint8_t)(up <= diag);
             }
         }
-        if (jbase + klo == 0) {
+        if (klo <= khi && jbase + klo == 0) {
             // j == 0: no diag (no target char); only up is legal
             int32_t up = prev[klo + 1] + 1;
             cur[klo] = up;

@@ -29,6 +29,8 @@ import math
 import os
 import socket
 import subprocess
+import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -188,18 +190,31 @@ def run_ranks(argvs, env: dict | None = None,
               timeout: float = 600.0) -> list[tuple[int, str]]:
     """Start one process per argv (``env`` added to this process's
     environment), wait for all, and return each one's (exit code, output
-    with stderr merged). A rank still running when this returns or raises,
-    as after a ``timeout`` (seconds), is killed: a rank whose peer died
+    with stderr merged). Each rank writes to a file of its own, so a rank
+    that writes a lot never blocks while its peers wait for it in a
+    collective. ``timeout`` (seconds) is one deadline for the whole call:
+    past it this raises ``subprocess.TimeoutExpired``. A rank still
+    running when this returns or raises is killed: a rank whose peer died
     must not outlive the caller."""
     env = dict(os.environ, **(env or {}))
-    procs = [subprocess.Popen(a, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for a in argvs]
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [(p.returncode, o) for p, o in zip(procs, outs)]
+    deadline = time.monotonic() + timeout
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="nstpu_ranks_") as d:
+        outs = [os.path.join(d, f"rank_{r}.log") for r in range(len(argvs))]
+        try:
+            for a, path in zip(argvs, outs):
+                with open(path, "wb") as f:
+                    procs.append(subprocess.Popen(
+                        a, env=env, stdout=f, stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res = []
+        for p, path in zip(procs, outs):
+            with open(path, encoding="utf-8", errors="replace") as f:
+                res.append((p.returncode, f.read()))
+    return res

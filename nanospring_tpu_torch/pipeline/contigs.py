@@ -13,7 +13,9 @@ Port of ``nanospring_tpu/pipeline/contigs.py``:
    verifies them by banded DP and splices accepted reads into contigs.
    With ``aligner="device"`` it hands each batch of DP to
    ``_DeviceDpHook``, which runs ``csrc/banded_dp16.cu`` (or its plain
-   version on ``cpu``); ``aligner="native"`` keeps the engine's own DP.
+   version on ``cpu``); ``aligner="native"`` keeps the engine's own DP;
+   ``aligner="auto"`` installs the hook in the engine's probe mode, which
+   times one batch on both and keeps the faster for the rest.
    ``aligner="python"`` grows in the Python wavefront (``_Wavefront``),
    whose frontier batches run ``csrc/banded_dp32.cu`` (the v1 kernel's
    counterpart) on ``cfg.device``, then polishes in one native call.
@@ -54,9 +56,16 @@ DP_INFO: dict = {"dp_backend": "native"}
 PIPE_STAGES: dict = {}
 
 
+# counters that take the largest value over worker processes, not the sum
+_MAX_TIMINGS = ("dp_worker_peak_bytes", "dp_hook_m_cap")
+
+
 def _merge_timings(dst: dict, src: dict) -> None:
     for k, v in src.items():
-        dst[k] = dst.get(k, 0.0) + float(v)
+        if k in _MAX_TIMINGS:
+            dst[k] = max(dst.get(k, 0.0), float(v))
+        else:
+            dst[k] = dst.get(k, 0.0) + float(v)
 
 
 @dataclasses.dataclass
@@ -68,29 +77,59 @@ class _Member:
     cost: int
 
 
+# the staging buffer through which a spill-backed store's packed bytes go
+# to the device, chunk by chunk
+STAGE_BYTES = 32 << 20
+
+
+def packed_on_device(packed: np.ndarray, dev):
+    """A store's packed buffer as one uint8 tensor on ``dev``. An
+    in-memory buffer goes whole. A read-only spill map (the low-memory
+    store) is never copied whole into host memory: it goes in
+    ``STAGE_BYTES`` chunks through one staging buffer (pinned on ``cuda``)
+    into the device buffer."""
+    import torch
+
+    if packed.flags["C_CONTIGUOUS"] and packed.flags["WRITEABLE"]:
+        return torch.from_numpy(packed).to(dev)
+    n = len(packed)
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    pin = dev.type == "cuda"
+    stage = torch.empty(max(1, min(STAGE_BYTES, n)), dtype=torch.uint8,
+                        pin_memory=pin)
+    view = stage.numpy()
+    for a in range(0, n, len(view)):
+        b = min(a + len(view), n)
+        if pin:     # the last chunk's copy has left the staging buffer
+            torch.cuda.current_stream(dev).synchronize()
+        view[: b - a] = packed[a:b]
+        out[a:b].copy_(stage[: b - a], non_blocking=pin)
+    if pin:
+        torch.cuda.current_stream(dev).synchronize()
+    return out
+
+
 def sketch_rows(store, cfg: CompressConfig, lo: int = 0,
                 hi: int | None = None):
     """Sketch reads [lo, hi) of ``store`` on ``cfg.device``: (hi - lo, n)
     int32 sketch bits on the device.
 
-    One call: the packed buffer goes to the device whole and the kernel
-    (or, on ``cpu``, its plain version) reads each read through
-    ``offsets[lo:hi]``, so there are no padding buckets and nothing is
-    copied per read."""
+    One call: the packed buffer goes to the device whole
+    (``packed_on_device``) and the kernel (or, on ``cpu``, its plain
+    version) reads each read through ``offsets[lo:hi]``, so there are no
+    padding buckets and nothing is copied per read."""
     import torch
 
     dev = cfg.torch_device()
     hi = store.num_reads if hi is None else hi
     seeds = sk.make_seeds(cfg.num_hashes, cfg.sketch_seed).astype(np.int64)
     min_len = max(cfg.kmer_size, cfg.min_read_len_for_sketch)
-    packed = np.asarray(store.packed)
-    if not (packed.flags["C_CONTIGUOUS"] and packed.flags["WRITEABLE"]):
-        packed = np.array(packed)       # read-only spill map: own a copy
 
     def to_dev(a: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return sk.sketch_reads(to_dev(packed), to_dev(store.offsets[lo:hi]),
+    return sk.sketch_reads(packed_on_device(np.asarray(store.packed), dev),
+                           to_dev(store.offsets[lo:hi]),
                            to_dev(store.lengths[lo:hi]), to_dev(seeds),
                            cfg.kmer_size, min_len)
 
@@ -1290,7 +1329,12 @@ class _DeviceDpHook:
             self.host[name] = host(P, i32)
         self.np = {k: v.numpy() for k, v in self.host.items()}
         self.dev = None
+        self._mem0 = 0
         if pin:
+            # the peak the hook reports is counted from here: what the
+            # process held before (the caller's tensors) is left out
+            torch.cuda.reset_peak_memory_stats(device)
+            self._mem0 = torch.cuda.memory_allocated(device)
             self.dev = {k: torch.empty(self.host[k].shape, dtype=t.dtype,
                                        device=device)
                         for k, t in self.host.items()
@@ -1303,6 +1347,12 @@ class _DeviceDpHook:
         self.escaped = 0            # accepted pairs with a 255 trace byte
         self.kernel_launches = 0    # CUDA kernel launches (0 on cpu)
         self.error: BaseException | None = None
+        # with NSTPU_DP_RECORD=DIR set, the process's first batch and its
+        # largest (pairs x longest query) are kept in DIR, inputs and
+        # outputs, as dp_<pid>_first.npz and dp_<pid>_largest.npz, to be
+        # replayed on the kernel's plain version (chip_smoke.py --big)
+        self.record_dir = os.environ.get("NSTPU_DP_RECORD")
+        self.record_size = -1
 
         @ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_int64)
         def _cb(n_pairs):
@@ -1342,6 +1392,7 @@ class _DeviceDpHook:
             rows = np.arange(m_rows)[None, :] < h["q_len"][:P, None]
             esc = ((h["trace"][:P, :m_rows] == 255) & rows).any(axis=1)
             self.escaped += int((esc & (h["cost"][:P] >= 0)).sum())
+            self._record(P, m_rows)
             return
         from ..ops import _cuda
 
@@ -1372,14 +1423,41 @@ class _DeviceDpHook:
             n_esc = esc.sum()
             torch.cuda.current_stream(dev).synchronize()
             self.escaped += int(n_esc)
+        self._record(P, m_rows)
+
+    def _record(self, P: int, m_rows: int) -> None:
+        if not self.record_dir or P * m_rows <= self.record_size:
+            return
+        slot = "first" if self.record_size < 0 else "largest"
+        self.record_size = P * m_rows
+        h = self.np
+        np.savez(os.path.join(self.record_dir,
+                              f"dp_{os.getpid()}_{slot}.npz"),
+                 m_cap=self.M_CAP, tpad=h["tpad"][:P, :m_rows + 128],
+                 queries=h["queries"][:P, :m_rows],
+                 trace=h["trace"][:P, :m_rows],
+                 **{k: h[k][:P] for k in ("d0", "q_len", "t_len", "max_cost",
+                                          "cost", "ts", "te")})
 
     def counters(self) -> dict:
+        """The hook's DP counters; a process whose hook launched the
+        kernel counts once in ``dp_workers_launched``; on ``cuda``
+        ``dp_worker_peak_bytes`` is the device memory that the hook's
+        buffers and launches held at their peak (the process's
+        ``torch.cuda.max_memory_allocated`` since the hook was made, less
+        what it held then); ``dp_hook_m_cap`` is the hook's row capacity
+        (both take the largest over workers)."""
+        peak = (self._torch.cuda.max_memory_allocated(self.device)
+                - self._mem0 if self.dev is not None else 0)
         return {"dp_hook_batches": self.batches,
                 "dp_kernel_launches": self.kernel_launches,
                 "dp_kernel_pairs": self.pairs,
                 "dp_kernel_rows": self.rows,
                 "dp_kernel_longest_rows": self.longest_rows,
-                "dp_escaped_pairs": self.escaped}
+                "dp_escaped_pairs": self.escaped,
+                "dp_workers_launched": int(self.kernel_launches > 0),
+                "dp_worker_peak_bytes": peak,
+                "dp_hook_m_cap": self.M_CAP}
 
     def install(self, mode: int) -> None:
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -1407,16 +1485,54 @@ class _DeviceDpHook:
             ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int32(0))
 
 
+def _probe_wanted(store, cfg: CompressConfig) -> bool:
+    """Whether ``aligner="auto"`` probes the device DP: the JAX package's
+    gate, under its environment names, with "a chip is attached" read as
+    ``device="cuda"`` (which raises where there is no card). It probes
+    when the store holds at least ``NSTPU_PROBE_MIN_BASES`` bases (2e7 by
+    default; the warm-up and probe batches only pay off on real inputs)
+    or ``NSTPU_TPU_PROBE=1``, and never with ``NSTPU_TPU_PROBE=0``."""
+    env = os.environ.get("NSTPU_TPU_PROBE")
+    if cfg.device != "cuda" or env == "0":
+        return False
+    return env == "1" or store.total_bases >= int(float(
+        os.environ.get("NSTPU_PROBE_MIN_BASES", 2e7)))
+
+
+def _probe_verdict(lib) -> dict:
+    """The engine's last probe (``ns_engine_probe_info``) as counters
+    that sum over worker processes: both timed sides of the probe batch,
+    and one count for the side that won. A process whose run reached no
+    probe batch (none of 64 pairs or more) counts for neither. The
+    verdict is cached per process and kernel shape, so a later run of the
+    same shape in one process reports, and follows, the first one's."""
+    dev_s, nat_s = ctypes.c_double(), ctypes.c_double()
+    dec = ctypes.c_int32()
+    lib.ns_engine_probe_info(ctypes.byref(dev_s), ctypes.byref(nat_s),
+                             ctypes.byref(dec))
+    probed = dec.value >= 0
+    return {"dp_probe_device_s": dev_s.value if probed else 0.0,
+            "dp_probe_native_s": nat_s.value if probed else 0.0,
+            "dp_probe_device_workers": int(dec.value == 1),
+            "dp_probe_native_workers": int(dec.value == 0)}
+
+
 def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
                             graph: dict, comp_subset) -> dict:
     """Whole grow loop in C++ (native/engine.cpp). With
     ``aligner="device"`` the engine's batch DP runs through
-    ``_DeviceDpHook`` (mode 1: every batch it can take)."""
+    ``_DeviceDpHook`` in mode 1 (every batch it can take); with
+    ``aligner="auto"``, where ``_probe_wanted``, in mode 2 (a warm-up
+    batch and a probe batch run on both sides, the host's results kept,
+    then the faster side runs the rest). A hook that fails raises in
+    either mode."""
     from .. import native
 
     lib = native.get_lib()
     hook = None
-    if cfg.aligner == "device":
+    mode = 1 if cfg.aligner == "device" else 2
+    if cfg.aligner == "device" or (cfg.aligner == "auto"
+                                   and _probe_wanted(store, cfg)):
         max_len = int(store.lengths.max()) if store.num_reads else 8192
         hook = _DeviceDpHook(lib, cfg.torch_device(), max_len)
     comp_order = graph["comp_order"]
@@ -1467,7 +1583,7 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
     otot = ctypes.c_int64()
     st2 = np.zeros(2, np.int64)
     if hook is not None:
-        hook.install(1)
+        hook.install(mode)
     _t_eng = time.perf_counter()
     h = lib.ns_engine_run(
         packed.ctypes.data_as(u8p), c64(store.offsets), c64(store.lengths),
@@ -1629,6 +1745,8 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
     stats.aligned_ok += int(st2[1])
     if hook is not None:
         timings.update(hook.counters())
+        if mode == 2:
+            timings.update(_probe_verdict(lib))
 
     if flat_fast:
         return {
@@ -1770,6 +1888,17 @@ def _grow_components(store, cfg: CompressConfig, stats: FunnelStats,
     return _grow_components_engine(store, cfg, stats, graph, comp_subset)
 
 
+def _dp_backend(cfg: CompressConfig) -> str:
+    """The DP that grew the contigs: ``cfg.aligner``, except that
+    ``auto`` reports its probe's verdict over the worker processes:
+    ``device``, ``native`` (also where no process probed) or ``mixed``."""
+    if cfg.aligner != "auto":
+        return cfg.aligner
+    dev = PIPE_STAGES.get("dp_probe_device_workers", 0)
+    nat = PIPE_STAGES.get("dp_probe_native_workers", 0)
+    return "mixed" if dev and nat else "device" if dev else "native"
+
+
 def build_contigs(
     store, cfg: CompressConfig, stats: FunnelStats, report: bool = True
 ) -> tuple[list[ContigBatch], np.ndarray]:
@@ -1852,6 +1981,7 @@ def build_contigs(
             os.unlink(fout)
     else:
         groups = [_grow_components(store, cfg, stats, graph, eligible.tolist())]
+    PIPE_STAGES["grow_workers"] = len(groups)
 
     member_mask = np.zeros(N, dtype=bool)
     for g in groups:
@@ -1860,13 +1990,20 @@ def build_contigs(
     lone = np.flatnonzero(~member_mask)
     DP_INFO.clear()
     DP_INFO.update(
-        dp_backend=cfg.aligner, device=cfg.device,
+        dp_backend=_dp_backend(cfg), device=cfg.device,
         sketch_kernel_launches=int(PIPE_STAGES.get(
             "sketch_kernel_launches", 0)),
         **{k: int(PIPE_STAGES.get(k, 0)) for k in (
             "dp_hook_batches", "dp_kernel_launches", "dp_kernel_pairs",
             "dp_kernel_rows", "dp_kernel_longest_rows", "dp_escaped_pairs",
-            "host_routed_long_pairs", "host_routed_long_rows")})
+            "host_routed_long_pairs", "host_routed_long_rows",
+            "grow_workers", "dp_workers_launched", "dp_worker_peak_bytes",
+            "dp_hook_m_cap")})
+    if cfg.aligner == "auto":
+        DP_INFO.update({k: PIPE_STAGES.get(k, 0) for k in (
+            "dp_probe_device_s", "dp_probe_native_s")})
+        DP_INFO.update({k: int(PIPE_STAGES.get(k, 0)) for k in (
+            "dp_probe_device_workers", "dp_probe_native_workers")})
 
     # combine all groups into one ContigBatch
     groups = [g for g in groups if len(g["consensus_list"])]

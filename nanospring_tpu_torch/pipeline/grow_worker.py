@@ -6,7 +6,10 @@ multiprocessing) because forking after CUDA initialization is unsafe, and
 spawn/forkserver re-execute the caller's __main__, which breaks
 embedded/stdin callers. Each worker installs its own device DP hook (one
 CUDA context per worker); growth is numpy + the C++ engine (components are
-disjoint, so there is no coordination at all).
+disjoint, so there is no coordination at all). The group's ``timings``
+carry the worker's hook counters back through the pickle: its DP
+launches, whether it launched at all, its peak device memory and, under
+``aligner="auto"``, its probe verdict and times.
 """
 
 from __future__ import annotations

@@ -224,3 +224,78 @@ def test_sharded_join_nccl_one_rank(dev, tmp_path):
     assert len(q) > 0
     assert np.array_equal(q, wq[keep]) and np.array_equal(r, wr[keep])
     assert np.array_equal(c, wc[keep])
+
+
+def _decodes(arc, out, reads):
+    decompressor.decompress_file(arc, out, report=False)
+    with open(out, "rb") as f:
+        return f.read().split(b"\n")[:-1] == reads
+
+
+def test_auto_on_cuda_probes(dev, tmp_path, monkeypatch):
+    """``aligner="auto"`` with the probe forced on: the warm-up and probe
+    batches go through ``banded_dp16`` on the card and the verdict is read
+    back; a ``native`` verdict writes the native archive's bytes."""
+    fq = str(tmp_path / "in.fastq")
+    reads = synth.make_dataset(fq, genome_len=30_000, num_reads=600,
+                               mean_len=1_000, seed=5, p_n_base=0.001,
+                               realistic=True)
+    monkeypatch.setenv("NSTPU_TPU_PROBE", "1")
+    arc, arc_n = str(tmp_path / "a.nstpu"), str(tmp_path / "n.nstpu")
+    res = compressor.compress_file(
+        fq, arc, CompressConfig(aligner="auto", pipeline_workers=1),
+        report=False)
+    compressor.compress_file(
+        fq, arc_n, CompressConfig(aligner="native", pipeline_workers=1),
+        report=False)
+    info = res["dp_info"]
+    assert info["dp_hook_batches"] >= 2 and info["dp_kernel_launches"] >= 2
+    dev_w, nat_w = (info["dp_probe_device_workers"],
+                    info["dp_probe_native_workers"])
+    assert dev_w + nat_w == 1
+    assert info["dp_backend"] == ("device" if dev_w else "native")
+    assert _decodes(arc, str(tmp_path / "a.reads"), reads)
+    if nat_w:
+        with open(arc, "rb") as f, open(arc_n, "rb") as g:
+            assert f.read() == g.read()
+
+
+def test_two_workers_on_cuda(dev, tmp_path):
+    """Two grow workers, each with its own CUDA context and hook on the
+    one card: each launches ``banded_dp16``."""
+    rng = np.random.default_rng(24)
+    reads = []
+    for _ in range(2):
+        g = synth.random_genome(60_000, rng)
+        reads += synth.make_reads(g, 80, 3_000, rng)
+    fq = str(tmp_path / "in.fastq")
+    synth.write_fastq(fq, reads, gz=False)
+    arc = str(tmp_path / "w2.nstpu")
+    res = compressor.compress_file(
+        fq, arc, CompressConfig(pipeline_workers=2), report=False)
+    info = res["dp_info"]
+    assert info["grow_workers"] == 2
+    assert info["dp_workers_launched"] == 2
+    assert info["dp_worker_peak_bytes"] > 0
+    assert _decodes(arc, str(tmp_path / "w2.reads"), reads)
+
+
+def test_spill_store_sketch_on_cuda(dev, tmp_path, monkeypatch):
+    """A spill-backed store goes to the card in chunks through a pinned
+    staging buffer; its sketch equals the in-memory store's."""
+    from nanospring_tpu_torch.io import read_store
+    from nanospring_tpu_torch.pipeline import contigs
+
+    fq = str(tmp_path / "in.fastq")
+    synth.make_dataset(fq, genome_len=100_000, num_reads=300, mean_len=3_000,
+                       seed=6, realistic=True)
+    cfg = CompressConfig()
+    mem = read_store.load_fastq(fq)
+    spill = read_store.load_fastq(fq, low_mem=True, work_dir=str(tmp_path))
+    try:
+        monkeypatch.setattr(contigs, "STAGE_BYTES", 12_289)
+        assert not spill.packed.flags["WRITEABLE"]
+        assert torch.equal(contigs.sketch_rows(spill, cfg),
+                           contigs.sketch_rows(mem, cfg))
+    finally:
+        spill.cleanup()

@@ -117,7 +117,7 @@ def test_mesh_graph_differs_from_one_process_only_in_neighbour_order(
     in its order, the mesh graph grows other contigs. The engine claims
     reads in adjacency order, so the order is what differs."""
     fq = str(tmp_path / "r.fastq")
-    synth.make_dataset(fq, genome_len=200_000, num_reads=400, mean_len=4_000,
+    synth.make_dataset(fq, genome_len=60_000, num_reads=150, mean_len=3_000,
                        seed=1234, p_n_base=0.0005, realistic=True)
     store = read_store.load_fastq(fq)
     N = store.num_reads

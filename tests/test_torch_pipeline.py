@@ -83,9 +83,10 @@ def test_device_aligner_two_workers_lossless(dataset):
 
 
 def test_from_reference_maps_aligners():
-    # the reference's default "auto" runs its native DP off a TPU; its
-    # "python" wavefront keeps its name (its DP is banded_dp32 here)
-    for ref, port in (("tpu", "device"), ("auto", "native"),
+    # the reference's default "auto" keeps its name (the engine's probe,
+    # here between the card's DP and the engine's own); its "python"
+    # wavefront keeps its name (its DP is banded_dp32 here)
+    for ref, port in (("tpu", "device"), ("auto", "auto"),
                       ("native", "native"), ("python", "python")):
         cfg = CompressConfig.from_reference(
             dataclasses.asdict(JaxConfig(aligner=ref)))
