@@ -68,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
         "-m", "--decompression-memory", type=float, default=5.0, help="GB for reorder"
     )
     p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("--trace-out", metavar="FILE", default=None,
+                   help="compress: write the job's spans (the engine's "
+                        "per-batch records included) to FILE as Chrome "
+                        "trace JSON, on CLOCK_MONOTONIC")
 
     sub = p.add_subparsers(dest="cmd")
     sp = sub.add_parser("synth", help="generate a synthetic FASTQ dataset")
@@ -161,7 +165,12 @@ def _dispatch(argv: list[str] | None) -> int:
             cfg.default_codec = args.default_codec
         from .compressor import compress_file
 
-        compress_file(args.input, args.output, cfg, report=not args.quiet)
+        res = compress_file(args.input, args.output, cfg,
+                            report=not args.quiet)
+        if args.trace_out:
+            from .utils import observe
+
+            observe.write_chrome_trace(args.trace_out, res["spans"])
         return 0
 
     if args.decompress:

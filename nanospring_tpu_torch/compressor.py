@@ -45,22 +45,24 @@ def compress_file(
             low_mem = os.path.getsize(in_path) >= cfg.low_mem_auto_bytes
         except OSError:
             low_mem = False
-    with timer.stage("load_reads"):
-        store = read_store.load_fastq(
-            in_path, low_mem=low_mem, work_dir=cfg.resolved_work_root()
-        )
-    if report:
-        print(
-            f"[nstpu] {store.num_reads} reads, avg len {store.avg_len:.0f}, "
-            f"total {store.total_bases/1e9:.3f} Gbases"
-        )
+    with timer.active():
+        with timer.stage("load_reads"):
+            store = read_store.load_fastq(
+                in_path, low_mem=low_mem, work_dir=cfg.resolved_work_root()
+            )
+        if report:
+            print(
+                f"[nstpu] {store.num_reads} reads, avg len "
+                f"{store.avg_len:.0f}, total {store.total_bases/1e9:.3f} "
+                f"Gbases"
+            )
 
-    try:
-        res = _compress_loaded(store, out_path, cfg, timer, stats, report)
-        res["low_mem"] = bool(low_mem)
-        return res
-    finally:
-        store.cleanup()  # low-mem spill file (no-op in memory mode)
+        try:
+            res = _compress_loaded(store, out_path, cfg, timer, stats, report)
+            res["low_mem"] = bool(low_mem)
+            return res
+        finally:
+            store.cleanup()  # low-mem spill file (no-op in memory mode)
 
 
 def _compress_loaded(store, out_path, cfg, timer, stats, report) -> dict:
@@ -105,7 +107,9 @@ def _compress_loaded(store, out_path, cfg, timer, stats, report) -> dict:
         codec_map["base"] = cfg.base_codec
         codec_map["pos"] = cfg.pos_codec
         codec_map["exc"] = getattr(cfg, "exc_codec", "nsbwt")
-        with cf.ThreadPoolExecutor(cfg.resolved_threads()) as pool:
+        threads = cfg.resolved_threads()
+        timer.add("codec_threads", threads)
+        with cf.ThreadPoolExecutor(threads) as pool:
             sizes = archive.write_archive(out_path, out, meta, codec_map, pool=pool)
 
     stats.reads_in_contigs = int(len(member_ids))
@@ -126,7 +130,8 @@ def _compress_loaded(store, out_path, cfg, timer, stats, report) -> dict:
         "stream_sizes": sizes,
         "raw_stream_sizes": out.sizes(),
         "wall_s": timer.total(),
-        "stage_s": timer.spans,
+        "stage_s": timer.stage_s,
+        "spans": timer.spans,
         "funnel": stats,
     }
     try:

@@ -93,14 +93,20 @@ banded_dp16_kernel(const int32_t* __restrict__ d0s,
 
 }  // namespace
 
+// ev0 and ev1, where not null, are CUDA events recorded on the stream
+// right before and right after the kernel, so that they time it alone.
 extern "C" int ns_banded_dp16_launch(
     const void* d0, const void* qlen, const void* tlen, const void* maxc,
     const void* tpad, int64_t t_stride, const void* qbuf, int64_t q_stride,
     void* cost, void* ops_len, void* ts, void* te,
     void* trace, int64_t tr_stride, void* dirs, int64_t dirs_rows,
-    int n_pairs, void* stream)
+    int n_pairs, void* stream, void* ev0, void* ev1)
 {
     if (n_pairs <= 0) return 0;
+    cudaError_t err = cudaSuccess;
+    if (ev0 != nullptr)
+        err = cudaEventRecord((cudaEvent_t)ev0, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     banded_dp16_kernel<<<n_pairs, 32, nsdp::smem_bytes<Dp16>(),
                          (cudaStream_t)stream>>>(
         (const int32_t*)d0, (const int32_t*)qlen, (const int32_t*)tlen,
@@ -108,7 +114,10 @@ extern "C" int ns_banded_dp16_launch(
         (const uint8_t*)qbuf, q_stride, (int32_t*)cost, (int32_t*)ops_len,
         (int32_t*)ts, (int32_t*)te, (uint8_t*)trace, tr_stride,
         (uint8_t*)dirs, dirs_rows, n_pairs);
-    return (int)cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess && ev1 != nullptr)
+        err = cudaEventRecord((cudaEvent_t)ev1, (cudaStream_t)stream);
+    return (int)err;
 }
 
 // Bytes of one row of the `dirs` scratch the launcher expects.

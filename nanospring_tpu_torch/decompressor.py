@@ -507,5 +507,5 @@ def decompress_file(
         "num_reads": num_reads,
         "total_bases": total,
         "wall_s": timer.total(),
-        "stage_s": timer.spans,
+        "stage_s": timer.stage_s,
     }

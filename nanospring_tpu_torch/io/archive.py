@@ -25,6 +25,7 @@ import zlib
 import numpy as np
 
 from ..codec import backends
+from ..utils import observe
 from . import streams as st
 
 FORMAT_VERSION = 2
@@ -42,7 +43,13 @@ def write_archive(
     """Compress each stream with its codec and concatenate everything.
 
     Returns the compressed size per stream (for observability/ratio stats).
+    Traced on the current tracer: ``archive.crc`` and ``archive.write`` on
+    the calling thread, a ``codec.<stream>`` span per chunk job on the
+    pool's threads (its codec, bytes in and bytes out), and the counters
+    ``codec_chunk_s`` (the chunk jobs' summed seconds) and
+    ``codec_longest_chunk_s`` (the slowest one).
     """
+    tr = observe.current()
     meta = dict(meta)
     meta["format_version"] = FORMAT_VERSION
     meta["codecs"] = codec_map
@@ -54,7 +61,9 @@ def write_archive(
             return zlib.crc32(data)
         return zlib.crc32(memoryview(np.ascontiguousarray(data)))
 
-    meta["crc32"] = {n: _crc(stream_set.get(n)) for n in st.STREAM_NAMES}
+    with tr.stage("archive.crc"):
+        meta["crc32"] = {n: _crc(stream_set.get(n))
+                         for n in st.STREAM_NAMES}
     sizes: dict[str, int] = {}
 
     # flatten (stream, chunk) jobs so one pool parallelizes both across
@@ -68,7 +77,14 @@ def write_archive(
 
     def _job(t):
         n, i, ch = t
-        return n, i, backends.compress_chunk(codec_map[n], ch)
+        with tr.stage("codec." + n):
+            p = backends.compress_chunk(codec_map[n], ch)
+            tr.note(codec=codec_map[n], bytes_in=len(ch), bytes_out=len(p))
+        span = tr.last()
+        dt = span["end"] - span["start"]
+        tr.add("codec_chunk_s", dt)
+        tr.peak("codec_longest_chunk_s", dt)
+        return n, i, p
 
     results = list(pool.map(_job, jobs)) if pool is not None else [
         _job(t) for t in jobs
@@ -81,7 +97,7 @@ def write_archive(
                 payloads[ri] = p
         coded[n] = backends.assemble_chunks(payloads)
 
-    with open(out_path, "wb") as f:
+    with tr.stage("archive.write"), open(out_path, "wb") as f:
         f.write(_MAGIC)
         mbytes = json.dumps(meta, indent=0).encode()
         f.write(struct.pack("<Q", len(mbytes)))

@@ -230,6 +230,9 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_engine_probe_info.argtypes = [dp, dp, i32p]
             lib.ns_engine_timings.restype = None
             lib.ns_engine_timings.argtypes = [ctypes.c_void_p, dp]
+            lib.ns_engine_spans.restype = i64
+            lib.ns_engine_spans.argtypes = [ctypes.c_void_p, i64, i32p, i32p,
+                                            i64p, dp, dp]
             lib.ns_join_stats.restype = None
             lib.ns_join_stats.argtypes = [ctypes.c_void_p, i64p]
             lib.ns_components.restype = i64

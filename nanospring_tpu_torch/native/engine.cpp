@@ -44,6 +44,28 @@ inline double now_s() {
     return std::chrono::duration<double>(
         std::chrono::steady_clock::now().time_since_epoch()).count();
 }
+
+// The engine's per-batch records (ns_engine_spans), on now_s()'s clock:
+// steady_clock, which is CLOCK_MONOTONIC, the clock of Python's
+// time.perf_counter, so they lie on the job's span time line.
+enum SpanKind : int32_t {
+    SK_COLLECT = 0,     // main: top-up and collect (placement)
+    SK_SETTLE,          // main: settle (apply)
+    SK_WAIT_DP,         // main: blocked on an unfinished DP batch
+    SK_DP_STARVED,      // DP thread: waiting on an empty ready queue
+    SK_DP_PACK,         // DP thread: kernel slots chosen, rows packed
+    SK_DP_HOOK,         // DP thread: the device hook's call
+    SK_DP_EXPAND,       // DP thread: trace expansion, escapes' host DP
+    SK_DP_HOST_ROUTED,  // DP thread: host DP of pairs the kernel did not take
+};
+struct SpanRec {
+    int32_t kind;
+    int32_t thread;     // 0 the engine's main thread, 1 its DP thread
+    int64_t batch;      // the batch's sequence number, -1 for none
+    double t0, t1;
+};
+// which of the engine's threads this is (set by the DP thread itself)
+thread_local int32_t tl_engine_thread = 0;
 }  // namespace
 
 extern "C" {
@@ -77,9 +99,10 @@ namespace {
 // buffers (diagonal-shifted targets, oriented queries), the callback runs
 // the kernel on the chip, and the byte trace comes back for expansion.
 // mode: 0 off, 1 forced on, 2 probe (first batch times both paths and the
-// faster one takes the rest of the run).
+// faster one takes the rest of the run). The callback also gets the
+// batch's sequence number, the one its records carry (ns_engine_spans).
 struct TpuHook {
-    int32_t (*fn)(int64_t n_pairs) = nullptr;
+    int32_t (*fn)(int64_t n_pairs, int64_t batch) = nullptr;
     uint8_t* tpad = nullptr;
     uint8_t* qbuf = nullptr;
     int32_t* d0 = nullptr;
@@ -139,7 +162,7 @@ extern "C" void ns_engine_set_tpu(
     int32_t* cost, int32_t* ts, int32_t* te, uint8_t* trace,
     int64_t p_cap, int64_t m_cap, int32_t mode)
 {
-    g_tpu.fn = (int32_t (*)(int64_t))fn;
+    g_tpu.fn = (int32_t (*)(int64_t, int64_t))fn;
     g_tpu.tpad = tpad;
     g_tpu.qbuf = qbuf;
     g_tpu.d0 = d0;
@@ -408,6 +431,14 @@ struct Engine {
                                         // host stitch/full split
     double t_polish = 0;
     double t_placefn = 0;
+    // the two threads' waits (ns_engine_timings 20-21)
+    double t_wait_dp = 0, t_dp_starved = 0;
+    int64_t n_batches = 0;              // batches collected so far
+    std::vector<SpanRec> recs[2];       // per engine thread: no lock
+    void mark(int32_t kind, int64_t batch, double t0, double t1) {
+        recs[tl_engine_thread].push_back(
+            SpanRec{kind, tl_engine_thread, batch, t0, t1});
+    }
     int64_t n_dp = 0, dp_bases = 0;
     int64_t n_stitch_bases = 0, n_full_dp_bases = 0;
     int64_t n_retry = 0, n_reject = 0, n_claimed_skip = 0, n_place_fail = 0;
@@ -857,6 +888,7 @@ struct Engine {
         std::vector<Placed> batch;
         std::vector<Item> consumed;
         std::vector<Item> deferred;
+        int64_t seq = -1;               // sequence number once collected
         bool any() const {
             return !batch.empty() || !consumed.empty() || !deferred.empty();
         }
@@ -973,6 +1005,7 @@ struct Engine {
     // kernel can't take (escalated full-band retries, over-long queries,
     // escape rows) run on the exact scalar DP.
     bool dp_run_tpu(BatchState& bs) {
+        const double t_pack = now_s();
         std::vector<Placed>& batch = bs.batch;
         const int64_t tw = g_tpu.m_cap + 3 * 128;
         const int64_t qw = g_tpu.m_cap + 2 * 128;
@@ -1031,7 +1064,12 @@ struct Engine {
             g_tpu.maxc[x] =
                 (int32_t)((m * prm[P_MAXCOST_KB]) / 1000 + 8);
         }
-        if (g_tpu.fn(P_pad) != 0) return false;   // fall back whole batch
+        const double t_hook = now_s();
+        mark(SK_DP_PACK, bs.seq, t_pack, t_hook);
+        const bool hook_ok = g_tpu.fn(P_pad, bs.seq) == 0;
+        const double t_expand = now_s();
+        mark(SK_DP_HOOK, bs.seq, t_hook, t_expand);
+        if (!hook_ok) return false;   // fall back whole batch
         // expand traces (+ per-pair exact-DP fallback on escapes/rejects)
         #pragma omp parallel for schedule(dynamic, 8)
         for (int64_t x = 0; x < P; ++x) {
@@ -1077,6 +1115,8 @@ struct Engine {
                 if (p.cost < 0) { p.ops_len = 0; p.tstart = 0; p.tend = 0; }
             }
         }
+        const double t_host = now_s();
+        mark(SK_DP_EXPAND, bs.seq, t_expand, t_host);
         // everything the kernel didn't take runs on the host path
         std::vector<uint8_t> taken(batch.size(), 0);
         for (int64_t x : tp_idx) taken[(size_t)x] = 1;
@@ -1096,6 +1136,7 @@ struct Engine {
                 p.ops.data(), ops_cap, &p.ops_len, &p.tstart, &p.tend);
             if (p.cost < 0) { p.ops_len = 0; p.tstart = 0; p.tend = 0; }
         }
+        mark(SK_DP_HOST_ROUTED, bs.seq, t_host, now_s());
         return true;
     }
 
@@ -1174,7 +1215,12 @@ struct Engine {
         }
         const double t0 = now_s();
         dp_run_native(bs);
-        t_dp += now_s() - t0;
+        const double t1 = now_s();
+        t_dp += t1 - t0;
+        // the device route's batch that the kernel took none of (or whose
+        // hook failed) is recorded as host-routed; a native verdict is not
+        if (g_tpu.fn && (g_tpu.mode == 1 || tpu_decision == 1))
+            mark(SK_DP_HOST_ROUTED, bs.seq, t0, t1);
         n_dp += (int64_t)bs.batch.size();
         for (const Placed& p : bs.batch) dp_bases += p.qhi - p.qlo;
     }
@@ -1273,9 +1319,15 @@ struct Engine {
 
     void run_batch() {
         BatchState bs;
+        const double t0 = now_s();
         collect(bs);
+        if (bs.any()) bs.seq = ++n_batches;
+        const double t1 = now_s();
+        mark(SK_COLLECT, bs.seq, t0, t1);
         dp_run(bs);
+        const double t2 = now_s();
         settle(bs);
+        mark(SK_SETTLE, bs.seq, t2, now_s());
     }
 
     void run() {
@@ -1308,10 +1360,16 @@ struct Engine {
         std::deque<BatchState*> dp_done;  // DP finished, awaiting settle
         bool stopping = false;
         std::thread worker([&] {
+            tl_engine_thread = 1;
             std::unique_lock<std::mutex> lk(mu);
             while (true) {
+                const double tw = now_s();
                 cv_worker.wait(lk,
                                [&] { return stopping || !ready.empty(); });
+                const double tr = now_s();
+                t_dp_starved += tr - tw;
+                mark(SK_DP_STARVED, ready.empty() ? -1 : ready.front()->seq,
+                     tw, tr);
                 if (ready.empty()) return;   // stopping && drained
                 BatchState* b = ready.front();
                 ready.pop_front();
@@ -1329,22 +1387,30 @@ struct Engine {
         // depends on thread timing, only the waiting does.
         auto settle_one = [&] {
             BatchState* b = nullptr;
+            const double tw = now_s();
             {
                 std::unique_lock<std::mutex> lk(mu);
                 cv_main.wait(lk, [&] { return !dp_done.empty(); });
                 b = dp_done.front();
                 dp_done.pop_front();
             }
+            const double ts = now_s();
+            t_wait_dp += ts - tw;
+            mark(SK_WAIT_DP, b->seq, tw, ts);
             settle(*b);
+            mark(SK_SETTLE, b->seq, ts, now_s());
             delete b;
         };
         int64_t inflight = 0;
         while (true) {
             bool collected = false;
             if (inflight < PIPE_DEPTH) {
+                const double tc = now_s();
                 top_up();
                 BatchState* b = new BatchState();
                 collect(*b);
+                if (b->any()) b->seq = ++n_batches;
+                mark(SK_COLLECT, b->seq, tc, now_s());
                 if (b->any()) {
                     collected = true;
                     ++inflight;
@@ -1430,6 +1496,8 @@ void* ns_engine_run(
     e->claimed = claimed;
     e->N = N;
     e->touched.assign((size_t)N, 0);
+    e->recs[0].reserve(4096);
+    e->recs[1].reserve(4096);
     std::memcpy(e->prm, params, sizeof(e->prm));
     for (int64_t i = 0; i < n_comps; ++i) {
         const int64_t comp = comps[i];
@@ -1646,13 +1714,15 @@ void ns_engine_free(void* handle) { delete (Engine*)handle; }
 
 // Per-run stage timings + DP counters for the bench's pipeline split (the
 // reference prints per-stage walls from src/Compressor.cpp:59-82; ours are
-// machine-readable). out[] must hold >= 20 doubles:
+// machine-readable). out[] must hold >= 22 doubles:
 //   0 t_place  1 t_dp  2 t_apply  3 t_polish  4 t_mz  5 t_placefn
 //   6 t_dp_stitch  7 t_dp_full  8 t_dp_tpu  9 t_dp_resize
 //   10 n_dp_pairs  11 dp_bases  12 stitch_bases  13 full_dp_bases
 //   14 n_reject  15 n_retry  16 n_place_fail  17 n_claimed_skip
 //   18 host_routed_long_pairs  19 host_routed_long_bases (queries beyond
 //      the TPU kernel's row capacity, 0 when no chip hook is installed)
+//   20 t_wait_dp (main thread blocked on the DP)  21 t_dp_starved (DP
+//      thread on an empty queue)
 void ns_engine_timings(void* handle, double* out) {
     Engine* e = (Engine*)handle;
     out[0] = e->t_place;      out[1] = e->t_dp;
@@ -1666,6 +1736,30 @@ void ns_engine_timings(void* handle, double* out) {
     out[16] = (double)e->n_place_fail;    out[17] = (double)e->n_claimed_skip;
     out[18] = (double)e->n_host_long_pairs;
     out[19] = (double)e->n_host_long_bases;
+    out[20] = e->t_wait_dp;         out[21] = e->t_dp_starved;
+}
+
+// The run's per-batch records (SpanKind, engine thread, batch sequence
+// number, start and end in seconds of CLOCK_MONOTONIC), the main thread's
+// first: writes at most cap of them and returns how many there are.
+int64_t ns_engine_spans(void* handle, int64_t cap, int32_t* kind,
+                        int32_t* thread, int64_t* batch, double* t0,
+                        double* t1)
+{
+    Engine* e = (Engine*)handle;
+    int64_t n = 0;
+    for (const auto& v : e->recs)
+        for (const SpanRec& r : v) {
+            if (n < cap) {
+                kind[n] = r.kind;
+                thread[n] = r.thread;
+                batch[n] = r.batch;
+                t0[n] = r.t0;
+                t1[n] = r.t1;
+            }
+            ++n;
+        }
+    return n;
 }
 
 }  // extern "C"

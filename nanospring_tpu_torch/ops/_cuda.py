@@ -103,17 +103,18 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_sketch_launch.restype = i32
             lib.ns_sketch_launch.argtypes = [
                 vp, vp, vp, vp, i64, i32, i32, i64, vp, vp]
-            lib.ns_banded_dp16_launch.restype = i32
-            lib.ns_banded_dp16_launch.argtypes = [
+            dp_args = [
                 vp, vp, vp, vp,          # d0, qlen, tlen, maxc
                 vp, i64, vp, i64,        # tpad + row stride, q + row stride
                 vp, vp, vp, vp,          # cost, ops_len, tstart, tend
                 vp, i64,                 # trace + row stride
                 vp, i64,                 # dirs scratch + rows per pair
                 i32, vp]                 # pairs, stream
+            lib.ns_banded_dp16_launch.restype = i32
+            lib.ns_banded_dp16_launch.argtypes = dp_args + [
+                vp, vp]                  # events around the kernel, or null
             lib.ns_banded_dp32_launch.restype = i32
-            lib.ns_banded_dp32_launch.argtypes = \
-                lib.ns_banded_dp16_launch.argtypes
+            lib.ns_banded_dp32_launch.argtypes = dp_args
             lib.ns_banded_dp16_row_bytes.restype = i32
             lib.ns_banded_dp16_row_bytes.argtypes = []
             lib.ns_banded_dp32_row_bytes.restype = i32

@@ -149,14 +149,17 @@ def banded_dp16_plain(d0, q_len, t_len, max_cost, tpad, queries,
 
 
 def banded_dp16(d0, q_len, t_len, max_cost, tpad, queries,
-                m_rows: int | None = None):
+                m_rows: int | None = None, events=None):
     """Banded DP of a batch at the hook's buffer ABI.
 
     Returns (cost, ops_len, tstart, tend) int32 (P,) and the trace, uint8
     (P, m_rows), of which rows [0, q_len) of each pair are written
     (``m_rows`` defaults to the longest query; passing it saves a device
     sync). CUDA tensors launch ``csrc/banded_dp16.cu``; CPU tensors take the
-    plain version. ``banded_dp16.launches`` counts kernel launches."""
+    plain version. ``banded_dp16.launches`` counts kernel launches.
+    ``events``, two CUDA events that exist (recorded once), are recorded
+    by the launcher on the stream right before and right after the
+    kernel, so that they time it alone."""
     P = _check(d0, q_len, t_len, max_cost, tpad, queries)
     dev = tpad.device
     if dev.type == "cpu":
@@ -187,7 +190,9 @@ def banded_dp16(d0, q_len, t_len, max_cost, tpad, queries,
         queries.data_ptr(), queries.stride(0),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         out[3].data_ptr(), trace.data_ptr(), trace.stride(0),
-        dirs.data_ptr(), dirs.shape[1], P, _cuda.stream_handle(dev))
+        dirs.data_ptr(), dirs.shape[1], P, _cuda.stream_handle(dev),
+        *((None, None) if events is None
+          else (events[0].cuda_event, events[1].cuda_event)))
     _cuda.check(rc, "banded DP kernel launch")
     banded_dp16.launches += 1
     return (*out, trace[:, :m_rows])

@@ -27,10 +27,13 @@ processes (``pipeline/grow_worker.py``) with no coordination.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
+import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -41,6 +44,7 @@ from ..ops import align as al
 from ..ops import align_tpu as at
 from ..ops import minimizers as mz
 from ..ops import sketch as sk
+from ..utils import observe
 from ..utils.observe import FunnelStats
 from . import candidates
 
@@ -707,18 +711,6 @@ def _emit_group(states: list, store) -> dict:
         ops_flat=ops_flat, ops_off=ops_off, ops_len=ops_len,
     )
     es = al.ops_to_edit_scripts(res, np.arange(M), queries_flat, q_off, q_len)
-    trace = os.environ.get("NSTPU_TRACE")
-    if trace:
-        # per-contig trace lines (the reference's -DLOG per-thread logfile
-        # timelines, src/Consensus.cpp:32-49); lines carry the pid because
-        # grow workers append concurrently and contig indices are per-group
-        pid = os.getpid()
-        lines = "".join(
-            f"pid {pid} contig {i} members={len(st.members)} "
-            f"cons_len={len(st.cons)} lo={st.lo}\n"
-            for i, st in enumerate(states))
-        with open(trace, "a") as f:
-            f.write(lines)
     return {
         "consensus_list": [st.cons for st in states],
         "reads_per_contig": np.array([len(st.members) for st in states], np.int64),
@@ -1264,7 +1256,8 @@ def _build_candidate_graph(store, cfg: CompressConfig, stats: FunnelStats,
     premz = None
     if premz_fut is not None:
         try:
-            premz = premz_fut.result()
+            with observe.current().stage("graph.premz_wait"):
+                premz = premz_fut.result()
         except Exception:
             premz = None
     return {
@@ -1346,6 +1339,16 @@ class _DeviceDpHook:
         self.longest_rows = 0       # longest query of each batch, summed
         self.escaped = 0            # accepted pairs with a 255 trace byte
         self.kernel_launches = 0    # CUDA kernel launches (0 on cpu)
+        # on cuda, per batch: events around the kernel, their seconds
+        # summed (0 on cpu); a first record makes the events the launcher
+        # records
+        self.events = ([torch.cuda.Event(enable_timing=True)
+                        for _ in range(2)] if pin else None)
+        for ev in self.events or ():
+            ev.record(torch.cuda.current_stream(device))
+        self.kernel_event_s = 0.0
+        self.batch = -1             # the engine's number of the batch in hand
+        self.owner = None           # native id of the thread running the engine
         self.error: BaseException | None = None
         # with NSTPU_DP_RECORD=DIR set, the process's first batch and its
         # largest (pairs x longest query) are kept in DIR, inputs and
@@ -1354,15 +1357,25 @@ class _DeviceDpHook:
         self.record_dir = os.environ.get("NSTPU_DP_RECORD")
         self.record_size = -1
 
-        @ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_int64)
-        def _cb(n_pairs):
-            if self.error is not None:
+        # the callback holds the hook weakly: a reference cycle would keep
+        # the hook's pinned buffers resident until the garbage collector
+        # ran, beside the next job's
+        me = weakref.ref(self)
+
+        @ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_int64, ctypes.c_int64)
+        def _cb(n_pairs, batch):
+            hook = me()
+            if hook.error is not None:
                 return 1
+            if threading.get_native_id() != hook.owner:
+                # the engine's DP thread, which Python names anew each call
+                threading.current_thread().name = "engine.dp"
+            hook.batch = int(batch)
             try:
-                self._run(int(n_pairs))
+                hook._run(int(n_pairs))
                 return 0
             except BaseException as e:  # noqa: BLE001 - re-raised by caller
-                self.error = e
+                hook.error = e
                 return 1
 
         self._cb = _cb  # keep the callback object alive
@@ -1379,50 +1392,73 @@ class _DeviceDpHook:
         self.pairs += P
         self.rows += int(q_len[:P].sum())
         self.longest_rows += m_rows
+        tr = observe.current()
+
+        @contextlib.contextmanager
+        def span(name):
+            with tr.stage(name):
+                tr.note(batch=self.batch)
+                yield
+
         scal = ("d0", "q_len", "t_len", "max_cost")
         if self.dev is None:
-            args = [torch.from_numpy(h[k][:P]) for k in scal]
-            cost, _ln, ts, te, trace = self._at.banded_dp16(
-                *args, torch.from_numpy(h["tpad"][:P, :m_rows + 128]),
-                torch.from_numpy(h["queries"][:P, :m_rows]), m_rows=m_rows)
-            h["cost"][:P] = cost.numpy()
-            h["ts"][:P] = ts.numpy()
-            h["te"][:P] = te.numpy()
-            h["trace"][:P, :m_rows] = trace.numpy()
-            rows = np.arange(m_rows)[None, :] < h["q_len"][:P, None]
-            esc = ((h["trace"][:P, :m_rows] == 255) & rows).any(axis=1)
-            self.escaped += int((esc & (h["cost"][:P] >= 0)).sum())
+            with span("dp.hook.copy_in"):
+                args = [torch.from_numpy(h[k][:P]) for k in scal]
+                tpad = torch.from_numpy(h["tpad"][:P, :m_rows + 128])
+                queries = torch.from_numpy(h["queries"][:P, :m_rows])
+            with span("dp.hook.launch"):
+                cost, _ln, ts, te, trace = self._at.banded_dp16(
+                    *args, tpad, queries, m_rows=m_rows)
+            with span("dp.hook.copy_out"):
+                h["cost"][:P] = cost.numpy()
+                h["ts"][:P] = ts.numpy()
+                h["te"][:P] = te.numpy()
+                h["trace"][:P, :m_rows] = trace.numpy()
+            with span("dp.hook.escape"):
+                rows = np.arange(m_rows)[None, :] < h["q_len"][:P, None]
+                esc = ((h["trace"][:P, :m_rows] == 255) & rows).any(axis=1)
+                self.escaped += int((esc & (h["cost"][:P] >= 0)).sum())
             self._record(P, m_rows)
             return
         from ..ops import _cuda
 
-        dev, d, hs = self.device, self.dev, self.host
+        dev, d, hs, ev = self.device, self.dev, self.host, self.events
         lib = _cuda.get_lib()
         with torch.cuda.device(dev):
             stream = _cuda.stream_handle(dev)
-            for k in scal:
-                d[k][:P].copy_(hs[k][:P], non_blocking=True)
-            for k, width in (("tpad", m_rows + 128), ("queries", m_rows)):
+            with span("dp.hook.copy_in"):
+                for k in scal:
+                    d[k][:P].copy_(hs[k][:P], non_blocking=True)
+                for k, width in (("tpad", m_rows + 128), ("queries", m_rows)):
+                    _cuda.check(lib.ns_copy2d(
+                        d[k].data_ptr(), d[k].stride(0), hs[k].data_ptr(),
+                        hs[k].stride(0), width, P, stream), f"copy {k}")
+            with span("dp.hook.launch"):
+                launches0 = self._at.banded_dp16.launches
+                cost, _ln, ts, te, trace = self._at.banded_dp16(
+                    *(d[k][:P] for k in scal), d["tpad"][:P, :m_rows + 128],
+                    d["queries"][:P, :m_rows], m_rows=m_rows,
+                    events=ev)
+                self.kernel_launches += (self._at.banded_dp16.launches
+                                         - launches0)
+            with span("dp.hook.copy_out"):
+                for k, v in (("cost", cost), ("ts", ts), ("te", te)):
+                    hs[k][:P].copy_(v, non_blocking=True)
                 _cuda.check(lib.ns_copy2d(
-                    d[k].data_ptr(), d[k].stride(0), hs[k].data_ptr(),
-                    hs[k].stride(0), width, P, stream), f"copy {k}")
-            launches0 = self._at.banded_dp16.launches
-            cost, _ln, ts, te, trace = self._at.banded_dp16(
-                *(d[k][:P] for k in scal), d["tpad"][:P, :m_rows + 128],
-                d["queries"][:P, :m_rows], m_rows=m_rows)
-            self.kernel_launches += self._at.banded_dp16.launches - launches0
-            for k, v in (("cost", cost), ("ts", ts), ("te", te)):
-                hs[k][:P].copy_(v, non_blocking=True)
-            _cuda.check(lib.ns_copy2d(
-                hs["trace"].data_ptr(), hs["trace"].stride(0),
-                trace.data_ptr(), trace.stride(0), m_rows, P, stream),
-                "copy trace")
-            rows = (torch.arange(m_rows, device=dev)[None, :]
-                    < d["q_len"][:P, None])
-            esc = ((trace == 255) & rows).any(dim=1) & (cost >= 0)
-            n_esc = esc.sum()
-            torch.cuda.current_stream(dev).synchronize()
+                    hs["trace"].data_ptr(), hs["trace"].stride(0),
+                    trace.data_ptr(), trace.stride(0), m_rows, P, stream),
+                    "copy trace")
+            with span("dp.hook.escape"):
+                rows = (torch.arange(m_rows, device=dev)[None, :]
+                        < d["q_len"][:P, None])
+                esc = ((trace == 255) & rows).any(dim=1) & (cost >= 0)
+                n_esc = esc.sum()
+            with span("dp.hook.sync"):
+                torch.cuda.current_stream(dev).synchronize()
             self.escaped += int(n_esc)
+            # the events were recorded on the stream that was just
+            # synchronised, so reading them waits for nothing
+            self.kernel_event_s += ev[0].elapsed_time(ev[1]) / 1e3
         self._record(P, m_rows)
 
     def _record(self, P: int, m_rows: int) -> None:
@@ -1446,7 +1482,8 @@ class _DeviceDpHook:
         buffers and launches held at their peak (the process's
         ``torch.cuda.max_memory_allocated`` since the hook was made, less
         what it held then); ``dp_hook_m_cap`` is the hook's row capacity
-        (both take the largest over workers)."""
+        (both take the largest over workers); ``dp_kernel_event_s`` is the
+        kernel's device seconds by CUDA events (0 on cpu)."""
         peak = (self._torch.cuda.max_memory_allocated(self.device)
                 - self._mem0 if self.dev is not None else 0)
         return {"dp_hook_batches": self.batches,
@@ -1457,9 +1494,11 @@ class _DeviceDpHook:
                 "dp_escaped_pairs": self.escaped,
                 "dp_workers_launched": int(self.kernel_launches > 0),
                 "dp_worker_peak_bytes": peak,
-                "dp_hook_m_cap": self.M_CAP}
+                "dp_hook_m_cap": self.M_CAP,
+                "dp_kernel_event_s": self.kernel_event_s}
 
     def install(self, mode: int) -> None:
+        self.owner = threading.get_native_id()
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
         h = self.np
@@ -1515,6 +1554,38 @@ def _probe_verdict(lib) -> dict:
             "dp_probe_native_s": nat_s.value if probed else 0.0,
             "dp_probe_device_workers": int(dec.value == 1),
             "dp_probe_native_workers": int(dec.value == 0)}
+
+
+# ns_engine_spans' kinds and threads, by their numbers in native/engine.cpp
+ENGINE_SPANS = ("engine.collect", "engine.settle", "engine.wait_dp",
+                "engine.dp_starved", "dp.pack", "dp.hook", "dp.expand",
+                "dp.host_routed")
+ENGINE_THREADS = ("engine.main", "engine.dp")
+
+
+def _engine_spans(lib, h, tr) -> None:
+    """The engine run ``h``'s per-batch records, added to ``tr`` as spans
+    with their batch numbers. Nothing happens where ``tr`` records
+    nothing."""
+    if tr is observe.NO_TRACER:
+        return
+    n = lib.ns_engine_spans(ctypes.c_void_p(h), 0, None, None, None, None,
+                            None)
+    kind = np.empty(n, np.int32)
+    thread = np.empty(n, np.int32)
+    batch = np.empty(n, np.int64)
+    t0 = np.empty(n, np.float64)
+    t1 = np.empty(n, np.float64)
+    lib.ns_engine_spans(ctypes.c_void_p(h), n,
+                        kind.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                        thread.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                        batch.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                        t0.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                        t1.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    for k, th, b, a, z in sorted(zip(kind.tolist(), thread.tolist(),
+                                     batch.tolist(), t0.tolist(),
+                                     t1.tolist()), key=lambda r: r[3]):
+        tr.record(ENGINE_SPANS[k], a, z, ENGINE_THREADS[th], batch=b)
 
 
 def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
@@ -1584,6 +1655,7 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
     st2 = np.zeros(2, np.int64)
     if hook is not None:
         hook.install(mode)
+    tr = observe.current()
     _t_eng = time.perf_counter()
     h = lib.ns_engine_run(
         packed.ctypes.data_as(u8p), c64(store.offsets), c64(store.lengths),
@@ -1599,7 +1671,8 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
         if hook is not None and hook.error is not None:
             raise RuntimeError("device DP hook failed") from hook.error
         _eng_wall = time.perf_counter() - _t_eng
-        _tim = np.zeros(20, np.float64)
+        _engine_spans(lib, h, tr)
+        _tim = np.zeros(22, np.float64)
         lib.ns_engine_timings(ctypes.c_void_p(h),
                               _tim.ctypes.data_as(
                                   ctypes.POINTER(ctypes.c_double)))
@@ -1612,9 +1685,10 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
             "dp_rejects": _tim[14], "dp_retries": _tim[15],
             "host_routed_long_pairs": _tim[18],
             "host_routed_long_bases": _tim[19],
+            "engine_wait_dp": _tim[20], "dp_starved": _tim[21],
         }
         C, M = nc.value, nm.value
-        flat_fast = not cfg.checks and not os.environ.get("NSTPU_TRACE")
+        flat_fast = not cfg.checks
         if flat_fast:
             # flat fast path, fetched in BOUNDED SLICES: the old monolithic
             # fetch materialized ops_flat + codes_flat (~2 B per aligned
@@ -1623,7 +1697,7 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
             # own copy drains as the caller converts; peak extra memory is
             # one slice (~2 * EMIT_SLICE_OPS) plus the compact edit
             # streams (~0.2 B/base).
-            _t_emit = time.perf_counter()
+            t_emit = time.perf_counter()
             per_cons = np.empty(C, np.int64)
             per_m = np.empty(C, np.int64)
             per_ops = np.empty(C, np.int64)
@@ -1642,55 +1716,54 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
                 while c1 < C and acc + int(per_ops[c1]) <= slice_cap:
                     acc += int(per_ops[c1])
                     c1 += 1
-                _t1 = time.perf_counter()
                 Ms = int(per_m[c0:c1].sum())
-                cons_flat = np.empty(int(per_cons[c0:c1].sum()), np.uint8)
-                cons_len = np.empty(c1 - c0, np.int64)
-                m_cnt_s = np.empty(c1 - c0, np.int64)
-                rid_s = np.empty(Ms, np.int64)
-                strand_s = np.empty(Ms, np.uint8)
-                tstart_s = np.empty(Ms, np.int64)
-                ops_len_s = np.empty(Ms, np.int64)
-                ops_flat = np.empty(acc, np.uint8)
-                lib.ns_engine_fetch_range(
-                    ctypes.c_void_p(h), ctypes.c_int64(c0),
-                    ctypes.c_int64(c1), ctypes.c_int32(1),
-                    cons_flat.ctypes.data_as(u8p), c64(cons_len),
-                    c64(m_cnt_s), c64(rid_s), strand_s.ctypes.data_as(u8p),
-                    c64(tstart_s), c64(ops_len_s),
-                    ops_flat.ctypes.data_as(u8p),
-                )
-                _t2 = time.perf_counter()
-                ops_off = np.zeros(Ms + 1, np.int64)
-                np.cumsum(ops_len_s, out=ops_off[1:])
-                codes_len = (store.lengths[rid_s].astype(np.int64) if Ms
-                             else np.zeros(0, np.int64))
-                codes_off = np.zeros(Ms + 1, np.int64)
-                np.cumsum(codes_len, out=codes_off[1:])
-                codes_flat = np.empty(int(codes_len.sum()), np.uint8)
-                lib.ns_unpack_oriented(
-                    packed.ctypes.data_as(u8pp),
-                    store.offsets.ctypes.data_as(i64pp),
-                    store.lengths.ctypes.data_as(i64pp),
-                    rid_s.ctypes.data_as(i64pp),
-                    strand_s.ctypes.data_as(u8pp),
-                    ctypes.c_int64(Ms), codes_off.ctypes.data_as(i64pp),
-                    codes_flat.ctypes.data_as(u8pp),
-                )
-                res = al.AlignResult(
-                    cost=np.zeros(Ms, np.int32), tstart=tstart_s,
-                    tend=np.zeros(Ms, np.int64),
-                    ops_flat=ops_flat, ops_off=ops_off[:-1],
-                    ops_len=ops_len_s,
-                )
-                _t3 = time.perf_counter()
-                es_s = al.ops_to_edit_scripts(res, np.arange(Ms),
-                                              codes_flat, codes_off[:-1],
-                                              codes_len)
-                if os.environ.get("NS_EMIT_DEBUG"):
-                    print(f"[emit] slice {c0}-{c1}: fetch {_t2-_t1:.3f}s "
-                          f"unpack {_t3-_t2:.3f}s es "
-                          f"{time.perf_counter()-_t3:.3f}s", flush=True)
+                with tr.stage("emit.fetch"):
+                    tr.note(contigs=c1 - c0, members=Ms, ops=acc)
+                    cons_flat = np.empty(int(per_cons[c0:c1].sum()),
+                                         np.uint8)
+                    cons_len = np.empty(c1 - c0, np.int64)
+                    m_cnt_s = np.empty(c1 - c0, np.int64)
+                    rid_s = np.empty(Ms, np.int64)
+                    strand_s = np.empty(Ms, np.uint8)
+                    tstart_s = np.empty(Ms, np.int64)
+                    ops_len_s = np.empty(Ms, np.int64)
+                    ops_flat = np.empty(acc, np.uint8)
+                    lib.ns_engine_fetch_range(
+                        ctypes.c_void_p(h), ctypes.c_int64(c0),
+                        ctypes.c_int64(c1), ctypes.c_int32(1),
+                        cons_flat.ctypes.data_as(u8p), c64(cons_len),
+                        c64(m_cnt_s), c64(rid_s),
+                        strand_s.ctypes.data_as(u8p),
+                        c64(tstart_s), c64(ops_len_s),
+                        ops_flat.ctypes.data_as(u8p),
+                    )
+                with tr.stage("emit.unpack"):
+                    ops_off = np.zeros(Ms + 1, np.int64)
+                    np.cumsum(ops_len_s, out=ops_off[1:])
+                    codes_len = (store.lengths[rid_s].astype(np.int64) if Ms
+                                 else np.zeros(0, np.int64))
+                    codes_off = np.zeros(Ms + 1, np.int64)
+                    np.cumsum(codes_len, out=codes_off[1:])
+                    codes_flat = np.empty(int(codes_len.sum()), np.uint8)
+                    lib.ns_unpack_oriented(
+                        packed.ctypes.data_as(u8pp),
+                        store.offsets.ctypes.data_as(i64pp),
+                        store.lengths.ctypes.data_as(i64pp),
+                        rid_s.ctypes.data_as(i64pp),
+                        strand_s.ctypes.data_as(u8pp),
+                        ctypes.c_int64(Ms), codes_off.ctypes.data_as(i64pp),
+                        codes_flat.ctypes.data_as(u8pp),
+                    )
+                with tr.stage("emit.scripts"):
+                    res = al.AlignResult(
+                        cost=np.zeros(Ms, np.int32), tstart=tstart_s,
+                        tend=np.zeros(Ms, np.int64),
+                        ops_flat=ops_flat, ops_off=ops_off[:-1],
+                        ops_len=ops_len_s,
+                    )
+                    es_s = al.ops_to_edit_scripts(res, np.arange(Ms),
+                                                  codes_flat, codes_off[:-1],
+                                                  codes_len)
                 cpos = 0
                 for ln in cons_len:
                     consensus_list.append(
@@ -1716,7 +1789,7 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
                 es = al.EditScripts(z(np.int64), z(np.int64), z(np.int64),
                                     z(np.int64), z(np.int64), z(np.uint8),
                                     z(np.uint8))
-            timings["emit"] = time.perf_counter() - _t_emit
+            timings["emit"] = time.perf_counter() - t_emit
         else:
             cons_flat = np.empty(ctot.value, np.uint8)
             cons_len = np.empty(C, np.int64)
@@ -1999,6 +2072,8 @@ def build_contigs(
             "host_routed_long_pairs", "host_routed_long_rows",
             "grow_workers", "dp_workers_launched", "dp_worker_peak_bytes",
             "dp_hook_m_cap")})
+    DP_INFO["dp_kernel_event_s"] = float(
+        PIPE_STAGES.get("dp_kernel_event_s", 0.0))
     if cfg.aligner == "auto":
         DP_INFO.update({k: PIPE_STAGES.get(k, 0) for k in (
             "dp_probe_device_s", "dp_probe_native_s")})
