@@ -30,12 +30,19 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    (``edge_pairs``: 1 to 131,072 rows, padding, a rejected pair, invalid
    slots, a deletion run that escapes), held against the plain version
    run on the CPU, in two worker processes started at the beginning of
-   this phase (their host time overlaps the batches above).
+   this phase (their host time overlaps the batches above). Last, the
+   card's suffix sort (``bwt_sa``) on blocks of an ``sa`` job's sizes: a
+   type-like block of 14.9 MB and a genome-like one of 8.2 MB with 20 kb
+   repeats, each plain and as its LZP variant, and a genome-like block of
+   32 MB (the codec's largest), byte-equal (BWT, primary, checkpoints) to
+   its plain version on the card and to SA-IS on the host.
 4. main paths, each on the 60 Mb headline set (bench.py's dataset: 2 Mb
    genome, 12,000 reads, mean length 5,000, seed 1234) on cuda with one
    pipeline worker, decompressed and byte-compared, with the kernel launch
    counts set to 0 just before the run and read just after:
-   ``compress_file`` with the engine and its device DP hook (the default),
+   ``compress_file`` with the engine and its device DP hook (the default;
+   every kernel, ``bwt_sa`` included, must launch, and nsbwt bytes must be
+   sorted on the card),
    the same data with the engine's own DP (``aligner="native"``, the ratio
    anchor), and the Python wavefront (``aligner="python"``), which sends
    batches up to 8,192 rows to the v1 DP and longer ones to the host DP,
@@ -53,7 +60,9 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    kernels also the profiler's time per main-path launch and the cycles
    per row of a launch's longest query, at the maximum SM clock; for the
    sketch also the split of one pass as the pipeline makes it (copies to
-   the card, kernel, copy back) beside the ``sketch_join`` stage.
+   the card, kernel, copy back) beside the ``sketch_join`` stage; for
+   ``bwt_sa`` each block of phase 3 against SA-IS's host time, and the
+   profiler's device time of its kernels in the main path.
 6. scale-out (``nanospring_tpu_torch/parallel``):
    (a) the sharded join on one NCCL rank in this process, its tensors on
    the card, whose gathered pairs and counts must equal the single-host
@@ -416,6 +425,127 @@ def sketch_edge_parity(dev) -> int:
     return cases
 
 
+# ---------------------------------------------------------------------------
+# the card's suffix sort (csrc/bwt_sa.cu) at the main path's block sizes
+# ---------------------------------------------------------------------------
+
+# the nsbwt blocks of one sa.device job as the device route writes them:
+# the type stream (14,943,215 bytes) and the genome stream (8,213,874),
+# each coded plain and as its LZP variant, and the codec's largest block
+# (codec/backends.py: _CHUNK, 32 MB)
+BWT_TYPE_BYTES = 14_943_215
+BWT_GENOME_BYTES = 8_213_874
+BWT_MAX_BYTES = 32 << 20
+BWT_MIN_BYTES = 1 << 18          # native/codec.cpp: kCardSortMinBytes
+
+
+def bwt_nck(n: int) -> int:
+    """``code_block``'s inverse-BWT chain count (native/codec.cpp)."""
+    return int(min(16, max(1, n >> 16)))
+
+
+def type_like(rng, n: int) -> np.ndarray:
+    """The type stream's shape (as an sa job's): edit tokens 'i', 'd', 's'
+    at that stream's shares, a newline every ~1,350 bytes (one per read),
+    and a 1.5 kb stretch from earlier every 50 kb, which LZP shortens, as
+    it does that stream, by a few percent."""
+    toks = np.frombuffer(b"ids", np.uint8)[
+        rng.choice(3, n, p=[0.237, 0.215, 0.548])]
+    toks[np.cumsum(rng.integers(700, 2000, n // 700))[:-1] % n] = ord("\n")
+    for dst in range(100_000, n - 1_500, 50_000):
+        src = int(rng.integers(0, dst - 1_500))
+        toks[dst:dst + 1_500] = toks[src:src + 1_500]
+    return toks
+
+
+def genome_like(rng, n: int, rep: int = 20_000) -> np.ndarray:
+    """Consensus-like codes 0-3 in which 20 kb stretches recur, exact and
+    at 99% identity: the rounds that long repeats cost."""
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    for dst in range(rep + 1000, n - rep, rep + 7_000):
+        src = int(rng.integers(0, dst - rep))
+        g[dst:dst + rep] = g[src:src + rep]
+        mut = rng.random(rep) < (0.01 if dst % 2 else 0.0)
+        g[dst:dst + rep][mut] ^= 1
+    return g
+
+
+def lzp_variant(block: np.ndarray) -> np.ndarray:
+    """The block that ``ns_bsc_compress`` codes when LZP engages."""
+    import ctypes
+
+    from nanospring_tpu_torch import native
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    out = np.empty(2 * len(block) + 16, np.uint8)
+    m = native.get_lib().ns_lzp_encode(block.ctypes.data_as(u8p), len(block),
+                                       out.ctypes.data_as(u8p))
+    return out[:m].copy()
+
+
+def sais_bwt(block: np.ndarray, nck: int) -> tuple:
+    """SA-IS's BWT on the host (``ns_bwt_forward_host``): (BWT bytes,
+    [primary] + checkpoints, ms)."""
+    import ctypes
+
+    from nanospring_tpu_torch import native
+
+    u8p, u32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
+    out = np.empty(len(block), np.uint8)
+    ck = np.zeros(32, np.uint32)
+    t0 = time.perf_counter()
+    primary = native.get_lib().ns_bwt_forward_host(
+        block.ctypes.data_as(u8p), len(block), out.ctypes.data_as(u8p), nck,
+        ck.ctypes.data_as(u32p))
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, [int(primary)] + [int(c) for c in ck[1:nck]], ms
+
+
+def bwt_sa_blocks(rng) -> list:
+    """(label, block) at the main path's sizes, plain and LZP variants."""
+    t = type_like(rng, BWT_TYPE_BYTES)
+    g = genome_like(rng, BWT_GENOME_BYTES)
+    return [("type-like", t), ("type-like, LZP", lzp_variant(t)),
+            ("genome-like", g), ("genome-like, LZP", lzp_variant(g)),
+            ("genome-like, largest block", genome_like(rng, BWT_MAX_BYTES))]
+
+
+def bwt_sa_parity(dev, blocks) -> list:
+    """The card's suffix sort (``ops.bwt_sa.bwt_sa``) against its plain
+    version on the card and SA-IS on the host, byte for byte (BWT,
+    primary, every checkpoint), on each (label, block); returns per block
+    the card's copy, its nck and the plain version's and SA-IS's ms."""
+    import torch
+
+    from nanospring_tpu_torch.ops import bwt_sa
+
+    rows = []
+    for label, b in blocks:
+        nck = bwt_nck(len(b))
+        x = torch.from_numpy(b).to(dev)
+        bwt, info = bwt_sa.bwt_sa(x, nck)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        p_bwt, p_info = bwt_sa.bwt_sa_plain(x, nck)
+        e.record()
+        torch.cuda.synchronize()
+        ref, ref_info, sais_ms = sais_bwt(b, nck)
+        got = bwt.cpu().numpy()
+        for side, (rb, ri) in (("its plain version", (p_bwt.cpu().numpy(),
+                                                      p_info.cpu().tolist())),
+                               ("SA-IS", (ref, ref_info))):
+            if not np.array_equal(got, rb) or info.cpu().tolist() != ri:
+                diff = np.flatnonzero(got != rb)[:5].tolist()
+                fail(f"bwt_sa {label} ({len(b)} bytes) differs from {side}: "
+                     f"BWT at {diff}, info {info.cpu().tolist()} against {ri}")
+        rows.append({"label": label, "n": len(b), "x": x, "nck": nck,
+                     "plain_ms": a.elapsed_time(e), "sais_ms": sais_ms})
+        log(f"[parity] bwt_sa {label}: {len(b)} bytes, nck {nck}: BWT, "
+            f"primary and checkpoints equal the plain version and SA-IS")
+    return rows
+
+
 def sketch_pass_split(store, cfg, dev) -> dict:
     """One sketch pass made as ``compute_all_sketches`` makes it (host
     arrays in pageable memory to the card, one kernel launch, the sketches
@@ -532,11 +662,26 @@ def host_dp_verdicts(batches, al) -> dict:
     return out
 
 
+def bwt_sa_kernel_names() -> set:
+    """The ``__global__`` functions of ``csrc/bwt_sa.cu``."""
+    import re
+
+    from nanospring_tpu_torch.ops import _cuda
+
+    with open(os.path.join(_cuda.CSRC, "bwt_sa.cu")) as f:
+        return set(re.findall(r"__global__ void (\w+)\(", f.read()))
+
+
 def device_times(prof) -> dict:
     """{kernel: (count, device ms)} from a torch.profiler run: the
-    kernels of the port by name, everything else on the card as 'other'."""
+    kernels of the port by name (``bwt_sa``: all of its kernels, one count
+    per kernel launch), everything else on the card as 'other'."""
+    import re
+
     from torch.autograd import DeviceType
 
+    bwt = re.compile(r"\(anonymous namespace\)::(%s)\(" % "|".join(
+        sorted(bwt_sa_kernel_names())))
     out: dict = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -548,7 +693,8 @@ def device_times(prof) -> dict:
             continue
         key = ("banded_dp16" if "banded_dp16_kernel" in e.key
                else "banded_dp32" if "banded_dp32_kernel" in e.key
-               else "sketch" if "sketch_kernel" in e.key else "other")
+               else "sketch" if "sketch_kernel" in e.key
+               else "bwt_sa" if bwt.match(e.key) else "other")
         c, t = out.get(key, (0, 0.0))
         out[key] = (c + (e.count if key != "other" else 0), t + us / 1e3)
     return out
@@ -567,6 +713,7 @@ import time
 from nanospring_tpu_torch.config import CompressConfig
 from nanospring_tpu_torch.io import read_store
 from nanospring_tpu_torch.ops import align_tpu as at
+from nanospring_tpu_torch.ops import bwt_sa
 from nanospring_tpu_torch.ops import sketch as sk
 from nanospring_tpu_torch.parallel import mesh
 from nanospring_tpu_torch.parallel.pipeline import compress_mesh
@@ -584,7 +731,8 @@ finally:
 print("RANK " + json.dumps({
     "rank": int(rank), "wall_s": wall,
     "launches": {"sketch": sk.sketch_reads.launches,
-                 "banded_dp16": at.banded_dp16.launches},
+                 "banded_dp16": at.banded_dp16.launches,
+                 "bwt_sa": bwt_sa.bwt_sa.launches},
     "ratio": res["ratio"] if res else None,
     "pairs": res["pairs"] if res else None,
     "gathered_meta": res["gathered_meta"] if res else None}))
@@ -906,9 +1054,11 @@ def auto_phase(fq: str, reads, arc_native: str, work: str,
     from nanospring_tpu_torch import compressor
     from nanospring_tpu_torch.config import CompressConfig
     from nanospring_tpu_torch.ops import align_tpu as at
+    from nanospring_tpu_torch.ops import bwt_sa
 
     arc = os.path.join(work, "headline_auto.nstpu")
     at.banded_dp16.launches = 0
+    bwt_sa.bwt_sa.launches = 0
     res = compressor.compress_file(
         fq, arc, CompressConfig(aligner="auto", pipeline_workers=1),
         report=False)
@@ -920,7 +1070,8 @@ def auto_phase(fq: str, reads, arc_native: str, work: str,
     log(f"[main] auto: verdict {dpi['dp_backend']}, probe batch on the card "
         f"{dpi['dp_probe_device_s']:.4f} s, on the host "
         f"{dpi['dp_probe_native_s']:.4f} s; {dpi['dp_hook_batches']} hook "
-        f"batches, {launches} banded_dp16 launches; ratio "
+        f"batches, {launches} banded_dp16 launches, "
+        f"{bwt_sa.bwt_sa.launches} bwt_sa launches; ratio "
         f"{res['ratio']:.4f}, compress {res['wall_s']:.2f} s, lossless "
         f"{lossless}, byte-equal to the native archive {same}")
     log(f"[main] auto stages {json.dumps(res['stage_s'])} | pipe split "
@@ -943,11 +1094,13 @@ def workers_phase(fq: str, reads, work: str) -> None:
 
     from nanospring_tpu_torch import compressor
     from nanospring_tpu_torch.config import CompressConfig
+    from nanospring_tpu_torch.ops import bwt_sa
 
     for w in (1, 2, 0):
         cfg = CompressConfig(aligner="device", pipeline_workers=w)
         arc = os.path.join(work, f"workers_{w}.nstpu")
         torch.cuda.reset_peak_memory_stats()
+        bwt_sa.bwt_sa.launches = 0      # the codec runs in this process
         with CardMemory() as mem:
             res = compressor.compress_file(fq, arc, cfg, report=False)
         dpi = res["dp_info"]
@@ -957,7 +1110,8 @@ def workers_phase(fq: str, reads, work: str) -> None:
         log(f"[workers] pipeline_workers={w} (resolves to "
             f"{cfg.resolved_workers()}): {procs} grow {where}, "
             f"{dpi['dp_workers_launched']} launched banded_dp16 "
-            f"({dpi['dp_kernel_launches']} launches); compress "
+            f"({dpi['dp_kernel_launches']} launches), bwt_sa launches "
+            f"{bwt_sa.bwt_sa.launches}; compress "
             f"{res['wall_s']:.2f} s, ratio {res['ratio']:.4f}, lossless "
             f"{lossless}; largest max_memory_allocated of a grow process "
             f"{dpi['dp_worker_peak_bytes']} B; card memory used "
@@ -984,6 +1138,7 @@ import json, resource, sys, time
 import torch
 from nanospring_tpu_torch import compressor
 from nanospring_tpu_torch.config import CompressConfig
+from nanospring_tpu_torch.ops import bwt_sa
 from nanospring_tpu_torch.utils.observe import rss_gb
 
 fq, arc, aligner, work = sys.argv[1:5]
@@ -997,6 +1152,7 @@ print("BIG " + json.dumps({
     "num_reads": res["num_reads"], "total_bases": res["total_bases"],
     "stage_s": res["stage_s"], "dp_info": res["dp_info"],
     "pipe_split": res["pipe_split"], "rss_imports_gb": rss_imports,
+    "bwt_sa_launches": bwt_sa.bwt_sa.launches,
     "rss_kib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
     "workers_rss_kib":
         resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss}))
@@ -1198,7 +1354,9 @@ def big_run(work: str, dev, pool) -> None:
             f"{c['total_bases']} bases; peak RSS {rss} B "
             f"({rss / in_bytes:.4f} of the input), its child processes' "
             f"largest {c['workers_rss_kib'] * 1024} B; sketch launches "
-            f"{dpi['sketch_kernel_launches']}, banded_dp16 launches "
+            f"{dpi['sketch_kernel_launches']}, bwt_sa launches "
+            f"{c['bwt_sa_launches']} (card bytes "
+            f"{c['stage_s'].get('bwt_card_bytes', 0)}), banded_dp16 launches "
             f"{dpi['dp_kernel_launches']} in {dpi['grow_workers']} grow "
             f"processes ({dpi['dp_workers_launched']} launched), hook "
             f"M_CAP {dpi['dp_hook_m_cap']}, card memory of a grow process "
@@ -1218,6 +1376,9 @@ def big_run(work: str, dev, pool) -> None:
             fail("the low-memory store did not switch on by itself")
         if dpi["sketch_kernel_launches"] != 1:
             fail(f"{dpi['sketch_kernel_launches']} sketch launches, not 1")
+        if c["bwt_sa_launches"] <= 0:
+            fail("no bwt_sa launch: the low-memory store's archive was "
+                 "sorted on the host")
         if aligner == "device":
             if dpi["dp_kernel_launches"] <= 0:
                 fail("no banded_dp16 launch on the device route")
@@ -1298,6 +1459,7 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
     from nanospring_tpu_torch.ops import _cuda
     from nanospring_tpu_torch.ops import align as al
     from nanospring_tpu_torch.ops import align_tpu as at
+    from nanospring_tpu_torch.ops import bwt_sa
     from nanospring_tpu_torch.ops import sketch as sk
     from nanospring_tpu_torch.utils import synth
 
@@ -1485,6 +1647,10 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         else:
             dp_err = max(dp_err, err)
 
+    t0 = time.time()
+    bwt_rows = bwt_sa_parity(dev, bwt_sa_blocks(np.random.default_rng(2028)))
+    log(f"[parity] bwt_sa: {len(bwt_rows)} blocks ({time.time() - t0:.1f} s)")
+
     # 4. main path ---------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -1493,11 +1659,13 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
                              ProfilerActivity.CUDA]) as prof:
         sk.sketch_reads.launches = 0
         at.banded_dp16.launches = 0
+        bwt_sa.bwt_sa.launches = 0
         res = compressor.compress_file(
             fq, arc, CompressConfig(aligner="device", pipeline_workers=1),
             report=False)
         launches = {"sketch": sk.sketch_reads.launches,
-                    "banded_dp16": at.banded_dp16.launches}
+                    "banded_dp16": at.banded_dp16.launches,
+                    "bwt_sa": bwt_sa.bwt_sa.launches}
     prof_ms = device_times(prof)
     busy_ms = sum(v[1] for v in prof_ms.values())
     log(f"[main] profiler, device time by kernel (count, ms): "
@@ -1520,14 +1688,17 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         f" | escape share {esc_share:.4f}")
     if not lossless:
         fail("device-DP archive does not decode to the input")
-    if launches["sketch"] <= 0 or launches["banded_dp16"] <= 0:
+    if min(launches.values()) <= 0:
         fail(f"a kernel of the main path never launched: {launches}")
+    if res["stage_s"].get("bwt_card_bytes", 0) <= 0:
+        fail("the main path sorted no nsbwt block on the card")
     if dpi["dp_kernel_pairs"] <= 0:
         fail("no pair went to the DP kernel")
     if dpi["host_routed_long_pairs"] != 0:
         fail(f"{dpi['host_routed_long_pairs']} pairs were host-routed")
 
     arc_n = os.path.join(work, "headline_native.nstpu")
+    bwt_sa.bwt_sa.launches = 0
     res_n = compressor.compress_file(
         fq, arc_n, CompressConfig(aligner="native", pipeline_workers=1),
         report=False)
@@ -1536,7 +1707,7 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         lossless_n = f.read().split(b"\n")[:-1] == reads
     log(f"[main] native DP: ratio {res_n['ratio']:.4f} (anchor "
         f"{ANCHOR_RATIO}), compress {res_n['wall_s']:.2f} s, lossless "
-        f"{lossless_n}")
+        f"{lossless_n}, bwt_sa launches {bwt_sa.bwt_sa.launches}")
     log(f"[main] native stages {json.dumps(res_n['stage_s'])} | pipe split "
         f"{json.dumps(res_n['pipe_split'])}")
     if not lossless_n:
@@ -1564,13 +1735,15 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
             sk.sketch_reads.launches = 0
             at.banded_dp16.launches = 0
             at.banded_dp32.launches = 0
+            bwt_sa.bwt_sa.launches = 0
             res_w = compressor.compress_file(
                 fq, arc_w,
                 CompressConfig(aligner="python", pipeline_workers=1),
                 report=False)
             launches_w = {"sketch": sk.sketch_reads.launches,
                           "banded_dp16": at.banded_dp16.launches,
-                          "banded_dp32": at.banded_dp32.launches}
+                          "banded_dp32": at.banded_dp32.launches,
+                          "bwt_sa": bwt_sa.bwt_sa.launches}
     finally:
         at.banded_align_batch_32 = batch32
     prof_w_ms = device_times(prof_w)
@@ -1591,7 +1764,8 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         f"{json.dumps(launches_w)}")
     if not lossless_w:
         fail("wavefront archive does not decode to the input")
-    if launches_w["sketch"] <= 0 or launches_w["banded_dp32"] <= 0:
+    if min(launches_w["sketch"], launches_w["banded_dp32"],
+           launches_w["bwt_sa"]) <= 0:
         fail(f"a kernel of the wavefront path never launched: {launches_w}")
     if dpi_w["dp_kernel_launches"] != launches_w["banded_dp32"]:
         fail("the wavefront's launch count disagrees with banded_dp32's")
@@ -1752,6 +1926,33 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
         "launches": launches_w["banded_dp32"], "max_abs_err": dp32_err,
         "ms": ms32, "plain_ms": plain32_ms, "bound_ms": bms32,
         "bound_by": bby32, "library_ms": None,
+    })
+
+    for r in bwt_rows:
+        ms_b = timed(lambda: bwt_sa.bwt_sa(r["x"], r["nck"]), reps=3, warm=1)
+        r["ms"] = ms_b
+        r["bound_ms"] = 2 * r["n"] / HBM_BYTES_S * 1e3   # n in, n out
+        log(f"[time] bwt_sa {r['label']}: {r['n']} bytes, {ms_b:.3f} ms per "
+            f"launcher call (its rounds and their syncs), plain "
+            f"{r['plain_ms']:.1f} ms, SA-IS on the host {r['sais_ms']:.1f} "
+            f"ms, bound {r['bound_ms']:.4f} ms (bytes)")
+    if "bwt_sa" in prof_ms:
+        cnt, tot = prof_ms["bwt_sa"]
+        log(f"[time] bwt_sa in the main path (profiler): "
+            f"{launches['bwt_sa']} launcher calls, {cnt} kernel launches, "
+            f"{tot:.1f} ms of device time in all, "
+            f"{res['stage_s']['bwt_card_bytes']} bytes sorted on the card, "
+            f"{res['stage_s'].get('bwt_host_bytes', 0)} on the host")
+    main_b = bwt_rows[0]                 # the type stream's size
+    kernels.append({
+        "name": "bwt_sa", "route": "cuda",
+        "source": "nanospring_tpu_torch/csrc/bwt_sa.cu",
+        "replaces": "nanospring_tpu_torch/native/codec.cpp:bwt_forward_host "
+                    "(SA-IS on the host; no TPU kernel)",
+        "launches": launches["bwt_sa"], "max_abs_err": 0,
+        "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
+        "host_ms": main_b["sais_ms"], "bound_ms": main_b["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
     })
 
     # 6. scale-out ---------------------------------------------------------

@@ -20,9 +20,15 @@ from __future__ import annotations
 
 import bz2
 import concurrent.futures as cf
+import contextlib
+import ctypes
 import lzma
 import struct
+import threading
+import weakref
 import zlib
+
+from ..utils import observe
 
 _CHUNK = 32 << 20  # block-chunked like the reference's 48 MB bsc blocks
                    # (bsc_helper.h:6). 32 MB: on Gbase-class inputs the
@@ -74,6 +80,11 @@ def _nsbwt_c(b: bytes) -> bytes:
     n = lib.ns_bsc_compress(
         src.ctypes.data_as(u8p), ctypes.c_int64(len(b)), out.ctypes.data_as(u8p)
     )
+    host, card = ctypes.c_int64(), ctypes.c_int64()
+    lib.ns_bsc_take_sort_bytes(ctypes.byref(host), ctypes.byref(card))
+    tr = observe.current()
+    tr.add("bwt_host_bytes", host.value)
+    tr.add("bwt_card_bytes", card.value)
     return out[:n].tobytes()
 
 
@@ -171,6 +182,120 @@ def _nso1_d(b: bytes) -> bytes:
         src_.ctypes.data_as(u8p), ctypes.c_int64(len(b)),
         out.ctypes.data_as(u8p))
     return out[:n].tobytes()
+
+
+# The C signature of the suffix-sort hook (native/codec.cpp, SaHook):
+# (data, n, out, nck, info) -> 0, or nonzero to sort the block on the host.
+SORT_HOOK = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p)
+
+
+def set_sort_hook(fn) -> None:
+    """Sets the codec library's suffix-sort hook to ``fn`` (a ``SORT_HOOK``
+    callback), or clears it with None. The hook is one for the process."""
+    from .. import native
+
+    native.get_lib().ns_bsc_set_sort_hook(
+        None if fn is None else ctypes.cast(fn, ctypes.c_void_p))
+
+
+class CardSuffixSort:
+    """The codec library's suffix-sort hook (``native/codec.cpp``,
+    ``ns_bsc_set_sort_hook``) on a card: ``bwt_forward`` hands it every
+    nsbwt block of at least ``kCardSortMinBytes`` (plain and LZP variants
+    alike), and ``ops.bwt_sa.bwt_sa`` builds the block's suffix array there
+    and returns the BWT bytes, the primary index and the checkpoints. The
+    LZP pass and the coders stay on the host; the coded bytes are the same.
+
+    The codec pool's threads call the callback concurrently; each block
+    runs under one lock on one stream: copied into one pinned staging
+    buffer (grown to the largest block, kept for the next job), sorted,
+    and its BWT copied back through the same buffer. Each use is a
+    ``codec.sa_card`` span (``bytes_in``) under the thread's
+    ``codec.<stream>`` span.
+
+    A failure must not pass for success: the block is then sorted on the
+    host (same bytes), the callback keeps the exception in ``error`` and
+    returns 1 for this and every later block, and ``card_suffix_sort``
+    raises it when the archive's jobs are done."""
+
+    def __init__(self, device):
+        import torch
+
+        from ..ops import bwt_sa
+
+        self.device = device
+        self._torch = torch
+        self._bwt_sa = bwt_sa.bwt_sa
+        self.stream = torch.cuda.Stream(device)
+        self._lock = threading.Lock()
+        self._buf = torch.empty(0, dtype=torch.uint8, pin_memory=True)
+        self._info = torch.empty(bwt_sa.MAX_NCK, dtype=torch.int32,
+                                 pin_memory=True)
+        self.error: BaseException | None = None
+        me = weakref.ref(self)             # no cycle through the callback
+
+        @SORT_HOOK
+        def _cb(data, n, out, nck, info):
+            hook = me()
+            if hook is None or hook.error is not None:
+                return 1
+            try:
+                hook._run(data, int(n), out, int(nck), info)
+                return 0
+            except BaseException as e:  # noqa: BLE001 - re-raised by caller
+                hook.error = e
+                return 1
+
+        self._cb = _cb
+
+    def _run(self, data, n: int, out, nck: int, info) -> None:
+        torch = self._torch
+        tr = observe.current()
+        with tr.stage("codec.sa_card"), self._lock, \
+                torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            tr.note(bytes_in=n)
+            if self._buf.numel() < n:
+                self._buf = torch.empty(-(-n // (1 << 20)) << 20,   # whole MB
+                                        dtype=torch.uint8, pin_memory=True)
+            buf = self._buf[:n]
+            ctypes.memmove(buf.data_ptr(), data, n)
+            bwt, inf = self._bwt_sa(buf.to(self.device, non_blocking=True),
+                                    nck)
+            buf.copy_(bwt, non_blocking=True)
+            self._info[:nck].copy_(inf, non_blocking=True)
+            self.stream.synchronize()
+            ctypes.memmove(out, buf.data_ptr(), n)
+            ctypes.memmove(info, self._info.data_ptr(), 4 * nck)
+
+
+_CARD_SORTS: dict[str, CardSuffixSort] = {}
+
+
+@contextlib.contextmanager
+def card_suffix_sort(device):
+    """Within the block, nsbwt blocks of at least ``kCardSortMinBytes``
+    are suffix-sorted on ``device`` when it is a card; elsewhere this does
+    nothing. One hook per card lives for the process, so its staging is
+    reused from job to job. The library's hook is one for the process:
+    while the block runs, every nsbwt block that any thread of the process
+    codes goes to this card, so the port runs one card compress at a time
+    in a process (the bytes would be the same, the counters not)."""
+    if device is None or device.type != "cuda":
+        yield
+        return
+    key = str(device)
+    hook = _CARD_SORTS.get(key)
+    if hook is None:
+        hook = _CARD_SORTS[key] = CardSuffixSort(device)
+    hook.error = None
+    set_sort_hook(hook._cb)
+    try:
+        yield
+    finally:
+        set_sort_hook(None)
+    if hook.error is not None:
+        raise RuntimeError("the card's suffix sort failed") from hook.error
 
 
 _BACKENDS: dict[str, tuple] = {

@@ -110,7 +110,8 @@ def _compress_loaded(store, out_path, cfg, timer, stats, report) -> dict:
         threads = cfg.resolved_threads()
         timer.add("codec_threads", threads)
         with cf.ThreadPoolExecutor(threads) as pool:
-            sizes = archive.write_archive(out_path, out, meta, codec_map, pool=pool)
+            sizes = archive.write_archive(out_path, out, meta, codec_map,
+                                          pool=pool, device=cfg.torch_device())
 
     stats.reads_in_contigs = int(len(member_ids))
     stats.lone_reads = int(len(lone_ids))

@@ -39,15 +39,20 @@ def write_archive(
     meta: dict,
     codec_map: dict[str, str],
     pool: cf.Executor | None = None,
+    device=None,
 ) -> dict[str, int]:
     """Compress each stream with its codec and concatenate everything.
 
+    With ``device`` a card, the nsbwt blocks' suffix arrays are built there
+    (``backends.card_suffix_sort``; the same bytes).
     Returns the compressed size per stream (for observability/ratio stats).
     Traced on the current tracer: ``archive.crc`` and ``archive.write`` on
     the calling thread, a ``codec.<stream>`` span per chunk job on the
-    pool's threads (its codec, bytes in and bytes out), and the counters
-    ``codec_chunk_s`` (the chunk jobs' summed seconds) and
-    ``codec_longest_chunk_s`` (the slowest one).
+    pool's threads (its codec, bytes in and bytes out) with a
+    ``codec.sa_card`` span inside for each block sorted on the card, and
+    the counters ``codec_chunk_s`` (the chunk jobs' summed seconds),
+    ``codec_longest_chunk_s`` (the slowest one), ``bwt_card_bytes`` and
+    ``bwt_host_bytes`` (the nsbwt bytes suffix-sorted on each side).
     """
     tr = observe.current()
     meta = dict(meta)
@@ -86,9 +91,10 @@ def write_archive(
         tr.peak("codec_longest_chunk_s", dt)
         return n, i, p
 
-    results = list(pool.map(_job, jobs)) if pool is not None else [
-        _job(t) for t in jobs
-    ]
+    with backends.card_suffix_sort(device):
+        results = list(pool.map(_job, jobs)) if pool is not None else [
+            _job(t) for t in jobs
+        ]
     coded = {}
     for n, chs in chunked.items():
         payloads = [None] * len(chs)

@@ -91,6 +91,15 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_bsc_compress.argtypes = [u8p, i64, u8p]
             lib.ns_bsc_decompress.restype = i64
             lib.ns_bsc_decompress.argtypes = [u8p, i64, u8p]
+            lib.ns_bsc_set_sort_hook.restype = None
+            lib.ns_bsc_set_sort_hook.argtypes = [ctypes.c_void_p]
+            lib.ns_bsc_take_sort_bytes.restype = None
+            lib.ns_bsc_take_sort_bytes.argtypes = [i64p, i64p]
+            u32p = ctypes.POINTER(ctypes.c_uint32)
+            lib.ns_bwt_forward_host.restype = ctypes.c_uint32
+            lib.ns_bwt_forward_host.argtypes = [u8p, i64, u8p, i32, u32p]
+            lib.ns_lzp_encode.restype = i64
+            lib.ns_lzp_encode.argtypes = [u8p, i64, u8p]
             lib.ns_lz_compress.restype = i64
             lib.ns_lz_compress.argtypes = [u8p, i64, u8p]
             lib.ns_lz_decompress.restype = i64

@@ -8,6 +8,7 @@
 // Block format: [u32 n][u32 primary][rc payload]  (raw-escape: primary =
 // 0xFFFFFFFF, payload = the input verbatim, for incompressible blocks).
 
+#include <atomic>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -119,6 +120,29 @@ void sais_int(const C* s, int32_t* SA, int32_t n, int32_t K) {
   induceSAs();
 }
 
+// The suffix-sort hook: where it is set (the port's compress on a card,
+// codec/backends.py), bwt_forward hands every block of at least
+// kCardSortMinBytes to it. It fills out[0..n) with the BWT, info[0] with
+// the primary index and info[c] with ck[c] for c in [1, nck), and returns
+// 0; on nonzero the block is sorted here. The suffix array is unique, so
+// the coded bytes do not depend on which side built it. One hook serves the
+// whole process: every thread's blocks go to it while it is set.
+using SaHook = int32_t (*)(const uint8_t* data, int64_t n, uint8_t* out,
+                           int32_t nck, uint32_t* info);
+std::atomic<SaHook> g_sa_hook{nullptr};
+// Blocks below this stay on the host. On an H100 the card's copies,
+// launches and per-round synchronisations took ~1 ms for a 44 KB block
+// against SA-IS's 2.8 ms, but 3-5 ms for 40-70 KB of one repeated byte or
+// a short period (14-15 rounds) against SA-IS's 2-3 ms: SA-IS grows with
+// the block, the rounds with the log of its longest repeat. From 128 KB
+// up the card was ahead on every content measured (0.8-3.8 ms against
+// 4.8-45 ms up to 512 KB); the bound leaves a factor of two.
+constexpr int64_t kCardSortMinBytes = int64_t(1) << 18;
+// Bytes suffix-sorted on each side by this thread since it last asked
+// (ns_bsc_take_sort_bytes): LZP and plain variants both.
+thread_local int64_t t_host_sort_bytes = 0;
+thread_local int64_t t_card_sort_bytes = 0;
+
 // BWT of data[0..n) via the suffix array of data + sentinel.
 // Returns primary index (row of the sentinel-started suffix's predecessor).
 // Checkpointed BWT: alongside the transform, emit ISA samples at the
@@ -126,8 +150,8 @@ void sais_int(const C* s, int32_t* SA, int32_t n, int32_t K) {
 // (one serial pointer-chase was ~90% of decode wall; k interleaved chains
 // hide the cache-miss latency). ck[s] = ISA[n - s*L] for s in [1, nck),
 // L = n / nck — free here because the suffix array is already built.
-uint32_t bwt_forward(const uint8_t* data, int64_t n, uint8_t* out,
-                     int nck = 1, uint32_t* ck = nullptr) {
+uint32_t bwt_forward_host(const uint8_t* data, int64_t n, uint8_t* out,
+                          int nck = 1, uint32_t* ck = nullptr) {
   std::vector<uint16_t> s(n + 1);
   for (int64_t i = 0; i < n; ++i) s[i] = uint16_t(data[i]) + 1;
   s[n] = 0;
@@ -149,6 +173,22 @@ uint32_t bwt_forward(const uint8_t* data, int64_t n, uint8_t* out,
     out[k++] = data[j - 1];
   }
   return primary;
+}
+
+// bwt_forward_host, or the hook for a block of at least kCardSortMinBytes.
+uint32_t bwt_forward(const uint8_t* data, int64_t n, uint8_t* out,
+                     int nck = 1, uint32_t* ck = nullptr) {
+  const SaHook hook = g_sa_hook.load();
+  if (hook != nullptr && n >= kCardSortMinBytes) {
+    uint32_t info[32];
+    if (hook(data, n, out, nck, info) == 0) {
+      t_card_sort_bytes += n;
+      for (int c = 1; c < nck; ++c) ck[c] = info[c];
+      return info[0];
+    }
+  }
+  t_host_sort_bytes += n;
+  return bwt_forward_host(data, n, out, nck, ck);
 }
 
 // Inverse BWT: bwt[0..n) + primary -> original data.
@@ -977,6 +1017,36 @@ int64_t ns_bsc_compress(const uint8_t* in, int64_t n, uint8_t* out) {
   }
   std::memcpy(out + off, payload.data(), payload.size());
   return off + int64_t(payload.size());
+}
+
+// Sets the suffix-sort hook (see SaHook); null clears it.
+void ns_bsc_set_sort_hook(void* fn) {
+  g_sa_hook.store(reinterpret_cast<SaHook>(fn));
+}
+
+// The bytes this thread suffix-sorted on the host and on the hook since
+// its last call, and resets both.
+void ns_bsc_take_sort_bytes(int64_t* host, int64_t* card) {
+  *host = t_host_sort_bytes;
+  *card = t_card_sort_bytes;
+  t_host_sort_bytes = t_card_sort_bytes = 0;
+}
+
+// SA-IS's BWT, whether or not a hook is set: the reference that the
+// card's suffix sort is held against. ck must hold nck words.
+uint32_t ns_bwt_forward_host(const uint8_t* data, int64_t n, uint8_t* out,
+                             int32_t nck, uint32_t* ck) {
+  return bwt_forward_host(data, n, out, nck, ck);
+}
+
+// The LZP pre-pass's output for in[0..n) (the block ns_bsc_compress codes
+// when LZP engages) into out, which must hold 2n + 16 bytes; returns its
+// length.
+int64_t ns_lzp_encode(const uint8_t* in, int64_t n, uint8_t* out) {
+  std::vector<uint8_t> lz;
+  lzp::encode(in, n, lz);
+  std::memcpy(out, lz.data(), lz.size());
+  return int64_t(lz.size());
 }
 
 // Returns decompressed size (== stored n). out must have capacity >= n.

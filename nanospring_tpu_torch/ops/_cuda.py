@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("sketch.cu", "banded_dp16.cu", "banded_dp32.cu")
+SOURCES = ("sketch.cu", "banded_dp16.cu", "banded_dp32.cu", "bwt_sa.cu")
 HEADERS = ("banded_dp_common.cuh",)
 _SO_NAME = "libnstpu_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -119,6 +119,12 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_banded_dp16_row_bytes.argtypes = []
             lib.ns_banded_dp32_row_bytes.restype = i32
             lib.ns_banded_dp32_row_bytes.argtypes = []
+            lib.ns_bwt_sa_scratch_bytes.restype = i64
+            lib.ns_bwt_sa_scratch_bytes.argtypes = [i64]
+            lib.ns_bwt_sa_launch.restype = i32
+            lib.ns_bwt_sa_launch.argtypes = [
+                vp, i64, i32, vp, vp,    # block, n, nck, bwt out, info out
+                vp, i64, vp]             # scratch and its bytes, stream
             lib.ns_copy2d.restype = i32
             lib.ns_copy2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
             lib.ns_cuda_error_string.restype = ctypes.c_char_p

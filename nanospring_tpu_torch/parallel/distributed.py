@@ -464,7 +464,8 @@ def _merge_and_archive(store, cfg, groups, stats, out_path: str) -> dict:
     codec_map = {n: cfg.default_codec for n in st.STREAM_NAMES}
     codec_map["base"] = cfg.base_codec
     codec_map["pos"] = cfg.pos_codec
-    sizes = archive.write_archive(out_path, out, meta, codec_map)
+    sizes = archive.write_archive(out_path, out, meta, codec_map,
+                                  device=cfg.torch_device())
     total_out = os.path.getsize(out_path)
     stats.contigs = int(len(reads_per_contig))
     return {

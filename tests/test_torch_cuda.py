@@ -148,9 +148,13 @@ def test_dp_kernel_edge_batch(dev, v1):
     import chip_smoke as cs
 
     edge = cs.edge_pairs(np.random.default_rng(2026))
-    kern, plain = ((at.banded_dp32, at.banded_dp32_plain) if v1
-                   else (at.banded_dp16, at.banded_dp16_plain))
-    got, err = cs.edge_parity(kern, plain, edge, dev, v1)
+    kern = at.banded_dp32 if v1 else at.banded_dp16
+    threads = torch.get_num_threads()
+    try:
+        ref, _ = cs.edge_plain(edge, v1)      # sets one thread
+    finally:
+        torch.set_num_threads(threads)
+    got, err = cs.edge_parity(kern, ref, edge, dev, v1)
     torch.cuda.synchronize()
     assert err == 0
     assert int((got[0] < 0).sum()) == 1
@@ -299,3 +303,109 @@ def test_spill_store_sketch_on_cuda(dev, tmp_path, monkeypatch):
                            contigs.sketch_rows(mem, cfg))
     finally:
         spill.cleanup()
+
+
+def _sais(block: np.ndarray, nck: int):
+    import ctypes
+
+    from nanospring_tpu_torch import native
+
+    u8p, u32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
+    out = np.empty(len(block), np.uint8)
+    ck = np.zeros(32, np.uint32)
+    primary = native.get_lib().ns_bwt_forward_host(
+        block.ctypes.data_as(u8p), len(block), out.ctypes.data_as(u8p), nck,
+        ck.ctypes.data_as(u32p))
+    return out, [int(primary)] + [int(c) for c in ck[1:nck]]
+
+
+def _lzp(block: np.ndarray) -> np.ndarray:
+    import ctypes
+
+    from nanospring_tpu_torch import native
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    out = np.empty(2 * len(block) + 16, np.uint8)
+    m = native.get_lib().ns_lzp_encode(block.ctypes.data_as(u8p), len(block),
+                                       out.ctypes.data_as(u8p))
+    return out[:m].copy()
+
+
+def test_bwt_sa_kernel_matches_sais(dev, tmp_path):
+    """The card's suffix sort against SA-IS's ``bwt_forward``: BWT bytes,
+    primary and every checkpoint, on edge blocks (1 and 2 bytes, one byte
+    repeated, periods 2 and 7, LZP's escape byte, a 20 MB block whose
+    scans span several tile groups) and on the type, pos, genome and lone
+    streams of a small sa-shaped compress, plain and LZP variants both."""
+    from nanospring_tpu_torch.codec import backends
+    from nanospring_tpu_torch.io import archive
+    from nanospring_tpu_torch.ops import bwt_sa
+
+    fq = str(tmp_path / "in.fastq")
+    synth.make_dataset(fq, genome_len=300_000, num_reads=300, mean_len=12_000,
+                       seed=7, realistic=True)
+    arc = str(tmp_path / "o.nstpu")
+    compressor.compress_file(fq, arc, CompressConfig(pipeline_workers=1),
+                             report=False)
+    _, raw = archive.read_archive(arc)
+    rng = np.random.default_rng(3)
+    blocks = [np.array([0x41], np.uint8), np.zeros(2, np.uint8),
+              np.full(70_000, 7, np.uint8),
+              (np.arange(50_001) % 2).astype(np.uint8),
+              np.tile(np.frombuffer(b"ACGTTGA", np.uint8), 10_000),
+              np.full(40_000, 0xFB, np.uint8),
+              rng.integers(0, 4, 20 << 20).astype(np.uint8)]
+    for name in ("type", "pos", "genome", "lone"):
+        assert len(raw[name]) > 1_000, name
+        for ch in backends.split_chunks(raw[name].tobytes()):
+            c = np.frombuffer(ch, np.uint8).copy()
+            blocks += [c, _lzp(c)]
+    n0 = bwt_sa.bwt_sa.launches
+    for b in blocks:
+        nck = int(min(16, max(1, len(b) >> 16)))
+        bwt, info = bwt_sa.bwt_sa(torch.from_numpy(b).to(dev), nck)
+        ref, ref_info = _sais(b, nck)
+        assert np.array_equal(bwt.cpu().numpy(), ref), len(b)
+        assert info.cpu().tolist() == ref_info, len(b)
+    assert bwt_sa.bwt_sa.launches == n0 + len(blocks)
+
+
+def test_archive_same_with_card_sort(dev, tmp_path, monkeypatch):
+    """An archive written with the card's suffix sort is the one written
+    without it, on the ``device`` and ``native`` routes (the set's genome
+    stream is over the hook's 256 KB bound), each card sort a
+    ``codec.sa_card`` span inside its chunk's ``codec.<stream>`` span;
+    ``bwt_card_bytes`` counts on ``cuda`` and stays 0 on ``cpu``."""
+    import contextlib
+
+    from nanospring_tpu_torch.codec import backends
+
+    fq = str(tmp_path / "in.fastq")
+    reads = synth.make_dataset(fq, genome_len=1_200_000, num_reads=1_200,
+                               mean_len=10_000, seed=7, realistic=True)
+    for aligner in ("device", "native"):
+        cfg = CompressConfig(aligner=aligner, pipeline_workers=1)
+        on, off = str(tmp_path / "on.nstpu"), str(tmp_path / "off.nstpu")
+        res = compressor.compress_file(fq, on, cfg, report=False)
+        with monkeypatch.context() as mp:
+            mp.setattr(backends, "card_suffix_sort",
+                       lambda device: contextlib.nullcontext())
+            res_off = compressor.compress_file(fq, off, cfg, report=False)
+        with open(on, "rb") as f1, open(off, "rb") as f2:
+            assert f1.read() == f2.read(), aligner
+        assert res["stage_s"]["bwt_card_bytes"] >= 1 << 20, aligner
+        assert res_off["stage_s"]["bwt_card_bytes"] == 0
+        sorts = [s for s in res["spans"] if s["name"] == "codec.sa_card"]
+        assert sorts and all(
+            res["spans"][s["parent"]]["name"].startswith("codec.")
+            and s["args"]["bytes_in"] >= 1 << 18 for s in sorts), aligner
+    assert _decodes(on, str(tmp_path / "on.reads"), reads)
+    small = str(tmp_path / "small.fastq")
+    synth.make_dataset(small, genome_len=100_000, num_reads=150,
+                       mean_len=3_000, seed=4, realistic=True)
+    res = compressor.compress_file(
+        small, str(tmp_path / "cpu.nstpu"),
+        CompressConfig(device="cpu", aligner="native", pipeline_workers=1),
+        report=False)
+    assert res["stage_s"].get("bwt_card_bytes", 0) == 0
+    assert res["stage_s"]["bwt_host_bytes"] > 0
