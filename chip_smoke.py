@@ -8,6 +8,7 @@ GPU. Run from the root of the repository:
                                            # NCCL ranks on 4 cards
     python3 chip_smoke.py --big      # after the build, one set over 2 GiB
                                      # (the low-memory store), ~20 minutes
+    python3 chip_smoke.py --hs1      # after the build, phase 8 alone
 
 Phases, in order; any failure exits nonzero and nothing is carried on:
 
@@ -90,6 +91,16 @@ Phases, in order; any failure exits nonzero and nothing is carried on:
    have launched ``banded_dp16``. Prints each run's wall, the largest
    ``max_memory_allocated`` of a grow process and the card's used memory
    (nvidia-smi, sampled during the run).
+8. hs1 (not with ``--small``): one job of the benchmark's ``hs1``
+   configuration (``benchmark/configs/hs1.json``: 15,667 reads of mean
+   8,484 at ~9.6% error, made by ``benchmark/gen.py``) through
+   ``compress_file`` with its settings. The k=23 join is sparse, so the
+   candidate graph sketches again at k=17: the job must run that pass,
+   retry band rejects on the host and decode to its input. The k=17 rows
+   of 256 reads drawn from a seed and of the longest read must equal
+   ``benchmark/reference.py``'s, and the pairs the graph was built from
+   the plain join's with the recovery rule
+   (``benchmark/reference_join.py``) on the job's rows of both passes.
 
 With ``--big``, after the build: one synthetic set over 2 GiB
 (``bench_scale.py``'s recipe: mean length 5,000, genome = bases / 24,
@@ -1419,6 +1430,121 @@ def big_run(work: str, dev, pool) -> None:
 
 # ---------------------------------------------------------------------------
 
+def hs1_phase(work: str) -> None:
+    """One job of the benchmark's ``hs1`` configuration (~9.6% error) on
+    the card through ``compress_file``, as its cell runs it: the recovery
+    pass must run, the job must decode to its input and retry band rejects
+    on the host; the k=17 sketch rows of 256 reads drawn from a seed and
+    of the longest read must equal ``benchmark/reference.py``'s, and the
+    pairs the candidate graph was built from must equal
+    ``benchmark/reference_join.py``'s, worked out from the job's own rows
+    of both passes."""
+    from nanospring_tpu_torch import compressor
+    from nanospring_tpu_torch.config import CompressConfig
+    from nanospring_tpu_torch.pipeline import contigs
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    import gen
+    import reference
+    import reference_join
+
+    with open(os.path.join(bench, "configs", "hs1.json")) as f:
+        config = json.load(f)
+    t0 = time.time()
+    d = os.path.join(work, "hs1")
+    os.makedirs(d, exist_ok=True)
+    info = gen.write_run(config, 2_718_281_829, d, 64, workers=4)
+    fq = os.path.join(d, "reads.fastq")
+    reads = reference.fastq_reads(fq)
+    N = len(reads)
+    log(f"[hs1] data: {N} reads, {info['bases']} bases, longest "
+        f"{info['longest']} in {time.time() - t0:.1f} s")
+
+    rows: dict = {}
+    graphs: list = []
+    orig_sketch, orig_graph = (contigs.compute_all_sketches,
+                               contigs._build_candidate_graph)
+
+    def compute_all_sketches(store, cfg, report=False):
+        out = orig_sketch(store, cfg, report)
+        rows[cfg.kmer_size] = np.array(out)
+        return out
+
+    def build_graph(*a, **kw):
+        graphs.append(orig_graph(*a, **kw))
+        return graphs[-1]
+
+    cfg = CompressConfig(**config["compress"])
+    arc = os.path.join(d, "hs1.nstpu")
+    contigs.compute_all_sketches = compute_all_sketches
+    contigs._build_candidate_graph = build_graph
+    try:
+        t0 = time.time()
+        res = compressor.compress_file(fq, arc, cfg, report=False)
+        wall = time.time() - t0
+    finally:
+        contigs.compute_all_sketches = orig_sketch
+        contigs._build_candidate_graph = orig_graph
+    ps, ss, dpi = res["pipe_split"], res["stage_s"], res["dp_info"]
+    log(f"[hs1] job {wall:.2f} s, ratio {res['ratio']:.4f}; join pairs "
+        f"first {ps['join_pairs_first']:.0f}, kept {ps['join_pairs_kept']:.0f}"
+        f", buckets over the cap {ps['capped_buckets']:.0f} (reads "
+        f"{ps['capped_reads']:.0f}), resketch_fired "
+        f"{ps['resketch_fired']:.0f}, graph.resketch "
+        f"{ss.get('graph.resketch', 0):.3f} s of sketch_join "
+        f"{ps['sketch_join']:.3f} s; DP pairs {ps['dp_pairs']:.0f}, rejects "
+        f"{ps['dp_rejects']:.0f}, escaped {dpi['dp_escaped_pairs']}, "
+        f"host-routed long {dpi['host_routed_long_pairs']}; retries "
+        f"{ps['retry_pairs']:.0f}, accepted "
+        f"{ps['retry_accepted']:.0f}, {ps['retry_dp_s']:.3f} s; no chain "
+        f"{ps['nochain_pairs']:.0f}, stitch failures "
+        f"{ps['stitchfail_pairs']:.0f}; lone "
+        f"{100 * ss['lone_bases'] / info['bases']:.2f}% of the bases; "
+        f"stages " + " ".join(f"{k} {v:.2f}" for k, v in ss.items()
+                              if k in ("load_reads", "pipeline", "serialize",
+                                       "codec+archive")))
+    if not decodes_to(arc, reads, work):
+        fail("[hs1] the archive does not decode to the input")
+    if ps["resketch_fired"] != 1 or not ps["join_pairs_first"] < 1.5 * N:
+        fail("[hs1] the recovery pass did not run")
+    if sorted(rows) != [17, 23]:
+        fail(f"[hs1] sketch passes at k = {sorted(rows)}, expected 17 and 23")
+    if ps["retry_pairs"] <= 0:
+        fail("[hs1] no band reject was retried on the host")
+
+    t0 = time.time()
+    rng = np.random.default_rng(2_718_281_829)
+    ids = np.unique(np.r_[rng.choice(N, 256, replace=False),
+                          int(np.argmax([len(r) for r in reads]))])
+    seeds = reference.sketch_seeds(cfg.num_hashes, cfg.sketch_seed)
+    min_len = max(17, cfg.min_read_len_for_sketch)
+    wrong_rows = sum(
+        not np.array_equal(reference.sketch_read(reads[i], 17, seeds,
+                                                 min_len), rows[17][i])
+        for i in ids.tolist())
+    ref = reference_join.graph_pairs(lambda k: rows[k], N, cfg.kmer_size,
+                                     cfg.overlap_sketch_threshold,
+                                     cfg.max_bucket)
+    g = graphs[-1]
+    got = np.stack([np.repeat(np.arange(N), np.diff(g["adj_off"])),
+                    g["dst"]])
+    want = np.concatenate([np.stack([ref["q"], ref["r"]]),
+                           np.stack([ref["r"], ref["q"]])], axis=1)
+    got = got[:, np.lexsort(got[::-1])]
+    want = want[:, np.lexsort(want[::-1])]
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    log(f"[hs1] k=17 rows: {wrong_rows} of {len(ids)} differ from the "
+        f"reference; graph pairs: {got.shape[1]} ({len(ref['q'])} ordered "
+        f"of k={ref['k']}), reference fired {ref['fired']}, first "
+        f"{ref['first']}; equal {same}; check {time.time() - t0:.1f} s")
+    if wrong_rows or not same or not ref["fired"] \
+            or ref["first"] != ps["join_pairs_first"]:
+        fail("[hs1] the k=17 rows or the graph's pairs differ from the "
+             "plain reference")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true",
@@ -1429,6 +1555,9 @@ def main() -> int:
     ap.add_argument("--big", action="store_true",
                     help="after the build, only a set over 2 GiB (the "
                     "low-memory store), device and auto")
+    ap.add_argument("--hs1", action="store_true",
+                    help="after the build, only phase 8: one job of the "
+                    "benchmark's hs1 configuration")
     args = ap.parse_args()
 
     import torch
@@ -1491,10 +1620,13 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
     _cuda.get_lib()
     log(f"[build] native + CUDA kernels in {time.time() - t0:.1f} s")
 
-    if args.big:
+    if args.big or args.hs1:
         t0 = time.time()
-        big_run(work, dev, pool)
-        log(f"[big] {time.time() - t0:.1f} s")
+        if args.big:
+            big_run(work, dev, pool)
+        else:
+            hs1_phase(work)
+        log(f"[{'big' if args.big else 'hs1'}] {time.time() - t0:.1f} s")
         log(f"[done] {time.time() - t_start:.1f} s")
         print(nvidia_smi(), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -1965,6 +2097,12 @@ def _run(args, dev, work: str, t_start: float, pool) -> int:
     t0 = time.time()
     workers_phase(fq2, reads2, work)
     log(f"[workers] phase {time.time() - t0:.1f} s")
+
+    # 8. the hs1 configuration ---------------------------------------------
+    if not args.small:
+        t0 = time.time()
+        hs1_phase(work)
+        log(f"[hs1] phase {time.time() - t0:.1f} s")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -89,6 +89,7 @@ def _compress_loaded(store, out_path, cfg, timer, stats, report) -> dict:
         )
         lone_ids = np.sort(np.asarray(lone_ids, dtype=np.int64))
         serialize.serialize_lone(lone_ids, store, out)
+        timer.add("lone_bases", int(store.lengths[lone_ids].sum()))
         all_ids = np.concatenate([member_ids, lone_ids])
         out.append("id", st.encode_id_stream(all_ids))
         out.append(

@@ -1178,19 +1178,20 @@ def _build_candidate_graph(store, cfg: CompressConfig, stats: FunnelStats,
     _t0 = time.perf_counter()
     candidates.reset_join_stats()
     pq, pr = _sketch_and_join(cfg)
+    first = len(pq)
     # Adaptive recovery for high-error data (hs1-like old basecaller):
     # k=23 minhash sketches barely collide at ~10% error, so a sparse
     # candidate graph (< ~1.5 neighbors/read; healthy data sits at 30+)
     # triggers one re-sketch with a shorter k-mer and a lower slot
     # threshold. The reference has no such fallback — its hs1 ratio decays
     # with the same fixed parameters (logs/2022/hs1.log).
-    if N and len(pq) * 2 < 3 * N and cfg.kmer_size > 17:
-        import dataclasses as _dc
-
-        cfg2 = _dc.replace(
+    fired = bool(N and len(pq) * 2 < 3 * N and cfg.kmer_size > 17)
+    if fired:
+        cfg2 = dataclasses.replace(
             cfg, kmer_size=17,
             overlap_sketch_threshold=max(3, cfg.overlap_sketch_threshold // 2))
-        pq2, pr2 = _sketch_and_join(cfg2)
+        with observe.current().stage("graph.resketch"):
+            pq2, pr2 = _sketch_and_join(cfg2)
         if len(pq2) > len(pq):
             if report:
                 print(f"[nstpu] sparse candidate graph "
@@ -1205,7 +1206,10 @@ def _build_candidate_graph(store, cfg: CompressConfig, stats: FunnelStats,
                                  "capped_buckets":
                                      candidates.JOIN_STATS["dropped_buckets"],
                                  "capped_reads":
-                                     candidates.JOIN_STATS["capped_reads"]})
+                                     candidates.JOIN_STATS["capped_reads"],
+                                 "join_pairs_first": first,
+                                 "join_pairs_kept": len(pq),
+                                 "resketch_fired": int(fired)})
     _t0 = time.perf_counter()
 
     # adjacency CSR over both directions
@@ -1672,7 +1676,7 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
             raise RuntimeError("device DP hook failed") from hook.error
         _eng_wall = time.perf_counter() - _t_eng
         _engine_spans(lib, h, tr)
-        _tim = np.zeros(22, np.float64)
+        _tim = np.zeros(31, np.float64)
         lib.ns_engine_timings(ctypes.c_void_p(h),
                               _tim.ctypes.data_as(
                                   ctypes.POINTER(ctypes.c_double)))
@@ -1687,6 +1691,12 @@ def _grow_components_engine(store, cfg: CompressConfig, stats: FunnelStats,
             "host_routed_long_bases": _tim[19],
             "engine_wait_dp": _tim[20], "dp_starved": _tim[21],
         }
+        # the host's full-band DPs by class: the escalated retries of band
+        # rejects (retry_*), pairs with no anchor chain, stitch failures
+        for c, name in enumerate(("nochain", "stitchfail", "retry")):
+            timings[name + "_pairs"] = _tim[22 + c]
+            timings[name + "_accepted"] = _tim[25 + c]
+            timings[name + "_dp_s"] = _tim[28 + c]
         C, M = nc.value, nm.value
         flat_fast = not cfg.checks
         if flat_fast:

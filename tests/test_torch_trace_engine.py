@@ -87,6 +87,16 @@ def test_new_engine_totals_are_present_and_split_the_dp(job):
     assert res["dp_info"]["dp_kernel_event_s"] == 0.0      # no events on cpu
 
 
+def test_engine_exports_its_full_band_dps_by_class(job):
+    res, _, raw, _ = job
+    for c in ("nochain", "stitchfail", "retry"):
+        assert 0 <= raw[c + "_accepted"] <= raw[c + "_pairs"]
+        assert raw[c + "_dp_s"] >= 0
+        assert c + "_pairs" in res["pipe_split"]
+    # every escalated retry comes from a band reject
+    assert raw["retry_pairs"] <= raw["dp_rejects"]
+
+
 def test_engine_spans_lie_inside_the_engine_run_on_the_shared_clock(job):
     res, runs, _, _ = job
     assert len(runs) == 1

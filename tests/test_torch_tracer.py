@@ -217,3 +217,31 @@ def test_metric_reader_on_a_synthetic_record(name):
                       "stage_s": {"codec+archive": 8.0}}]}
     assert mod.read(bare) is None
     assert mod.read({"jobs": []}) is None
+
+
+def _hs1_job(bases, fired, resketch, retry_s, lone):
+    """A job record with the high-error regime's counters."""
+    stage = {"lone_bases": lone}
+    if resketch is not None:
+        stage["graph.resketch"] = resketch
+    return {"bases": bases, "stage_s": stage,
+            "pipe_split": {"resketch_fired": fired, "retry_dp_s": retry_s},
+            "dp_info": {}}
+
+
+HS1_READINGS = {"resketch_s": 1.5, "retry_dp_s": 0.75, "lone_base_pct": 25.0}
+
+
+@pytest.mark.parametrize("name", sorted(HS1_READINGS))
+def test_high_error_metric_reader_on_a_synthetic_record(name):
+    mod = _reader(name)
+    assert mod.NAME == name
+    # a job whose first join was dense enough has no recovery span: 0 s
+    rec = {"jobs": [_hs1_job(1000, 1, 3.0, 1.0, 300),
+                    _hs1_job(1000, 0, None, 0.5, 200)]}
+    assert mod.read(rec) == pytest.approx(HS1_READINGS[name])
+    # a program without the counters (the parent commit): no reading
+    bare = {"jobs": [{"bases": 1000, "pipe_split": {"sketch_join": 2.0},
+                      "dp_info": {}, "stage_s": {"serialize": 0.5}}]}
+    assert mod.read(bare) is None
+    assert mod.read({"jobs": []}) is None
